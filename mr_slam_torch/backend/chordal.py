@@ -1,0 +1,205 @@
+"""Two-stage chordal pose-graph optimization, matrix-free (port of
+`mr_slam_tpu/backend/chordal.py`: `PGOConfig`, `rotation_init`,
+`optimize`; single device only).
+
+Stage 1 solves the chordal rotation relaxation by CG and projects to
+SO(3); stage 2 runs Gauss-Newton on the BetweenChordalFactor residuals
+with Jacobi-preconditioned CG, Cauchy IRLS weights on loop edges.
+Every H x product is a gather over edge endpoints, a per-edge Jacobian
+contraction and a scatter-add (`index_add_`, float atomics on the card)
+back to nodes. The reference's `lax.scan`s are Python loops: with the
+default budget (60 + 12 x 40 CG steps, ~540 in all, each ~20 small
+kernels) a solve is launch-bound on the card.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..geometry import so3
+from ..geometry.se3 import Pose
+from .factor_graph import FactorGraph
+
+
+class PGOConfig(NamedTuple):
+    rot_cg_iters: int = 60       # stage-1 CG iterations
+    gn_iters: int = 12           # stage-2 outer GN iterations
+    pose_cg_iters: int = 40      # CG iterations per GN step
+    anchor_weight: float = 1e6   # prior strength (ref prior noise 1e-15)
+    robust_delta: float = 1.0    # Cauchy scale for loop edges; <=0 off
+    damping: float = 1e-5
+
+
+def _edge_weights(g: FactorGraph):
+    w = g.edge_valid.to(torch.float32)
+    return w * g.edge_w_rot, w * g.edge_w_trans
+
+
+def _scatter(n: int, ei, vi, ej, vj) -> torch.Tensor:
+    """zeros((n, ...)) .add at ei of vi, then at ej of vj."""
+    out = torch.zeros((n, *vi.shape[1:]), dtype=vi.dtype, device=vi.device)
+    return out.index_add_(0, ei, vi).index_add_(0, ej, vj)
+
+
+def rotation_init(
+    g: FactorGraph,
+    anchors: torch.Tensor,
+    iters: int = 60,
+    anchor_weight: float = 1e3,
+) -> torch.Tensor:
+    """Solve min sum_e w_e |X_j - X_i Rij|_F^2 (+ anchored rotations) over
+    X in R^{N x 3 x 3} by CG on the normal equations, then project to
+    SO(3). `anchor_weight` is softer than the pose stage's (a 1e6 anchor
+    row stalls CG from a warm start)."""
+    N = g.node_capacity
+    w_rot, _ = _edge_weights(g)
+    Rij = g.edge_meas.R
+    ei, ej = g.edge_i, g.edge_j
+    anchor_R = g.poses.R
+    aw = anchors.to(torch.float32) * anchor_weight
+    wr = w_rot[:, None, None]
+
+    def A(X):
+        d = X[ej] - X[ei] @ Rij
+        gi = -(d @ Rij.transpose(-1, -2))
+        return _scatter(N, ei, wr * gi, ej, wr * d) + aw[:, None, None] * X
+
+    b = aw[:, None, None] * anchor_R
+    X = anchor_R  # warm start from the current estimate
+    r = b - A(X)
+    p = r
+    rs = torch.sum(r * r)
+    for _ in range(iters):
+        Ap = A(p)
+        alpha = rs / torch.clamp(torch.sum(p * Ap), min=1e-12)
+        X = X + alpha * p
+        r = r - alpha * Ap
+        rs_new = torch.sum(r * r)
+        beta = rs_new / torch.clamp(rs, min=1e-12)
+        p = r + beta * p
+        rs = rs_new
+    return so3.project(X)
+
+
+def _hat_cols(M: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 9, 3) stack of -hat(column_k)."""
+    cols = M.transpose(-1, -2)
+    return -so3.hat(cols).reshape(*M.shape[:-2], 9, 3)
+
+
+def _residuals_and_jac(R: torch.Tensor, t: torch.Tensor, g: FactorGraph):
+    """Per-edge chordal residual (E, 12) and Jacobian blocks wrt
+    (phi_i, dt_i, phi_j, dt_j), each (E, 12, 3):
+    e_R = vec(R_i Rij - R_j), e_t = R_i tij + t_i - t_j."""
+    ei, ej = g.edge_i, g.edge_j
+    Ri, Rj = R[ei], R[ej]
+    ti, tj = t[ei], t[ej]
+    Rij, tij = g.edge_meas.R, g.edge_meas.t
+    Mi = Ri @ Rij
+    e_R = (Mi - Rj).transpose(-1, -2).reshape(-1, 9)  # vec by columns
+    ri_tij = (Ri @ tij[..., None])[..., 0]
+    e_t = ri_tij + ti - tj
+    E = ei.shape[0]
+    z93 = torch.zeros((E, 9, 3), device=R.device)
+    z33 = torch.zeros((E, 3, 3), device=R.device)
+    eye3 = torch.eye(3, device=R.device).expand(E, 3, 3)
+    J = {
+        "phi_i": torch.cat([_hat_cols(Mi), -so3.hat(ri_tij)], dim=1),
+        "dt_i": torch.cat([z93, eye3], dim=1),
+        "phi_j": torch.cat([-_hat_cols(Rj), z33], dim=1),
+        "dt_j": torch.cat([z93, -eye3], dim=1),
+    }
+    return torch.cat([e_R, e_t], dim=1), J
+
+
+def _edge_block_weight(g: FactorGraph, r: torch.Tensor, robust_delta: float):
+    """(E, 12) per-row weights: rotation rows w_rot, translation rows
+    w_trans, scaled by a Cauchy IRLS factor on loop edges."""
+    w_rot, w_trans = _edge_weights(g)
+    row_w = torch.cat(
+        [w_rot[:, None].expand(-1, 9), w_trans[:, None].expand(-1, 3)], dim=1
+    )
+    if robust_delta > 0:
+        e2 = torch.sum(r * r * row_w, dim=1)
+        cw = 1.0 / (1.0 + e2 / (robust_delta**2))
+        cw = torch.where(g.edge_kind != 0, cw, 1.0)
+        row_w = row_w * cw[:, None]
+    return row_w
+
+
+def _jt(Jb: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """einsum('erc,er->ec')."""
+    return (Jb.transpose(-1, -2) @ v[..., None])[..., 0]
+
+
+def _hessian_diag(J, row_w, ei, ej, N):
+    """(N, 6) diagonal of the GN normal matrix (Jacobi preconditioner)."""
+    di = torch.cat([_jt(J["phi_i"] ** 2, row_w), _jt(J["dt_i"] ** 2, row_w)], dim=1)
+    dj = torch.cat([_jt(J["phi_j"] ** 2, row_w), _jt(J["dt_j"] ** 2, row_w)], dim=1)
+    return _scatter(N, ei, di, ej, dj)
+
+
+def optimize(
+    g: FactorGraph,
+    anchors: torch.Tensor,
+    config: PGOConfig = PGOConfig(),
+) -> Pose:
+    """Full two-stage chordal optimization. Returns optimized poses
+    (invalid nodes keep their input pose). `anchors`: (N,) bool — one
+    per connected component."""
+    N = g.node_capacity
+    R = rotation_init(g, anchors, config.rot_cg_iters)
+    R = torch.where(g.node_valid[:, None, None], R, g.poses.R)
+    t = g.poses.t
+    aw = anchors.to(torch.float32) * config.anchor_weight
+    anchor_R0, anchor_t0 = g.poses.R, g.poses.t
+    ei, ej = g.edge_i, g.edge_j
+
+    for _ in range(config.gn_iters):
+        r, J = _residuals_and_jac(R, t, g)
+        row_w = _edge_block_weight(g, r, config.robust_delta)
+
+        def Hx(x):
+            xi, xj = x[ei], x[ej]
+            Jx = (
+                (J["phi_i"] @ xi[:, 0:3, None])[..., 0]
+                + (J["dt_i"] @ xi[:, 3:6, None])[..., 0]
+                + (J["phi_j"] @ xj[:, 0:3, None])[..., 0]
+                + (J["dt_j"] @ xj[:, 3:6, None])[..., 0]
+            )
+            WJx = row_w * Jx
+            gi = torch.cat([_jt(J["phi_i"], WJx), _jt(J["dt_i"], WJx)], dim=1)
+            gj = torch.cat([_jt(J["phi_j"], WJx), _jt(J["dt_j"], WJx)], dim=1)
+            return _scatter(N, ei, gi, ej, gj) + (aw[:, None] + config.damping) * x
+
+        Wr = row_w * r
+        bi = torch.cat([_jt(J["phi_i"], Wr), _jt(J["dt_i"], Wr)], dim=1)
+        bj = torch.cat([_jt(J["phi_j"], Wr), _jt(J["dt_j"], Wr)], dim=1)
+        b = -_scatter(N, ei, bi, ej, bj)
+        # anchor residual pull (keep anchors at their initial pose)
+        phi_anchor = so3.log(R @ anchor_R0.transpose(-1, -2))
+        b = b - aw[:, None] * torch.cat([phi_anchor, t - anchor_t0], dim=1)
+        diag = _hessian_diag(J, row_w, ei, ej, N) + aw[:, None] + config.damping
+        Minv = 1.0 / torch.clamp(diag, min=1e-8)
+
+        x = torch.zeros((N, 6), device=t.device)
+        r_ = b
+        z = Minv * r_
+        p = z
+        rz = torch.sum(r_ * z)
+        for _ in range(config.pose_cg_iters):
+            Ap = Hx(p)
+            alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-12)
+            x = x + alpha * p
+            r_ = r_ - alpha * Ap
+            z = Minv * r_
+            rz_new = torch.sum(r_ * z)
+            beta = rz_new / torch.clamp(rz, min=1e-12)
+            p = z + beta * p
+            rz = rz_new
+        R_new = so3.exp(x[:, 0:3]) @ R
+        t_new = t + x[:, 3:6]
+        R = torch.where(g.node_valid[:, None, None], R_new, R)
+        t = torch.where(g.node_valid[:, None], t_new, t)
+    return Pose(so3.project(R), t)
