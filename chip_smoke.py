@@ -7,30 +7,52 @@ Phases (each prints its own lines; any failure exits non-zero):
 
   1. card    — requires a CUDA device; prints `nvidia-smi`'s name and
                power limit.
-  2. build   — compiles the hand-written kernel (`csrc/vgicp_accum.cu`)
-               with nvcc from this checkout and prints ptxas' register /
-               shared-memory report; builds the native max-clique solver.
+  2. build   — compiles the hand-written kernels (`csrc/vgicp_accum.cu`,
+               `csrc/terrain_stencil.cu`) with nvcc from this checkout,
+               both at once, and prints ptxas' register / shared-memory /
+               spill report of each; builds the native max-clique solver.
   3. kernel  — the VGICP accumulation kernel against its plain PyTorch
                version on the card at the loop-verify shapes (B = 8
                candidates x N = 16384 points; tables of 8192 and 32768
                rows built by `voxel_grid.build`), both modes, with and
                without a linearization center; two launches must be
                bit-identical; CUDA-event times of both versions.
-  4. main    — `runtime.pipeline.run` on the card: 3 robots on the ring
+  4. stencil — the terrain-stencil kernel against its plain version at
+               2048^2 (the reference's bench size) and 4096^2, on the
+               bench's random field and on smooth terrain with 80 % valid
+               cells: step and the enough mask exact, the other layers
+               within STENCIL_ATOL, a bit-identical rerun, and both
+               within 1e-3 (rad / m) of a float64 evaluation on the
+               256^2 far corner; CUDA-event times and the kernel's GB/s
+               at 21 B per cell.
+  5. main    — `runtime.pipeline.run` on the card: 3 robots on the ring
                road of `tests/test_multirobot.py` (radius 22 m, 0.55
                laps, phases 2 pi r / 3, 40 frames each), 32x1024-ray
                scans raycast on the host with numpy from fixed seeds,
                `SlamConfig(n_robots=3)` defaults except the loop gates
                (min_separation 6 from that test, the descriptor gate
                0.75 of the reference's 64x1024 long run; see DESC_GATE).
-               Checks: the kernel launched, >= 1 inter-robot
-               loop, per-robot keyframe ATE < 1 m and within
-               1.25 x the JAX reference + 0.05 m (JAX_REF_ATE). Prints
-               stage times, frames/s, peak device memory, loop counts,
-               and whether a second run gives bit-identical poses.
+               Checks: the VGICP kernel launched, >= 1 inter-robot loop,
+               per-robot keyframe ATE < 1 m and within 1.25 x the JAX
+               reference + 0.05 m (JAX_REF_ATE), and a second run gives
+               bit-identical optimized poses. Prints stage times,
+               frames/s, peak device memory and loop counts.
+  6. map     — the products of phase 5's result on the card:
+               `pipeline.compose_map` and `pipeline.build_elevation(size=
+               600)`. Checks: the stencil kernel launched, the costmap
+               has free and lethal cells, valid / free / lethal counts
+               within 5 % of the reference map's (JAX_REF_MAP), a second
+               build bit-identical, and the kernel against its plain
+               version on that 600^2 grid (timed). Then robot 0's 40
+               frames through the reference's per-frame GEM tick (shift,
+               predict, motion_update, fuse; `runtime/online.py:400-421`)
+               on an `ElevationCfg()` grid, features and costmap on the
+               last grid, which must be centred on the robot; stage
+               times.
 
-The second-to-last line is the kernels' JSON record, the last line
-`{"ok": true, "device": {...}}`.
+The last three lines are the kernels' JSON record (the counts of the
+main path's runs of phases 5 and 6), the card's name and power limit as
+`nvidia-smi` prints them, and `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -44,9 +66,25 @@ import numpy as np
 
 # Keyframe ATE (m) of `mr_slam_tpu.runtime.pipeline.run` on the CPU for
 # the identical scans and config of `scenario()`, per robot: the
-# correctness reference of phase 4 (JAX on CPU; recorded in PERF.md).
+# correctness reference of phase 5 (JAX on CPU; recorded in PERF.md).
 # That run accepts 24 inter-robot loops.
 JAX_REF_ATE = (0.04725401848554611, 0.03672850877046585, 0.05712500587105751)
+# Cell counts of the global map of that reference run, the correctness
+# reference of phase 6 (JAX on CPU; PERF.md): valid cells of
+# `mr_slam_tpu.runtime.pipeline.build_elevation(result, cfg, size=600)`,
+# free and lethal cells of that elevation map classified through the
+# window-local plane fit (`features_plain` + `costmap.from_elevation`;
+# a float64 fit gives the same counts). The reference's own costmap
+# has 4479 lethal cells (355 lethal there only, 5 only here): its
+# absolute-coordinate moments cancel in float32 and put slope errors of
+# up to 1.57 rad on that map, a defect the port does not copy.
+# Re-record the counts whenever the scenario changes.
+JAX_REF_MAP = dict(valid=60664, free=56535, lethal=4129)
+MAP_SIZE = 600
+STENCIL_SIZES = (2048, 4096)
+# kernel vs plain on the card: the same float32 operations in the same
+# order (--fmad=false); only the math library's atanf may part by an ulp
+STENCIL_ATOL = 1e-6
 
 N_ROBOTS, N_FRAMES, RINGS, AZIMUTH = 3, 40, 32, 1024
 # A world whose ring road no box touches (numpy worlds differ from the
@@ -68,7 +106,7 @@ def log(*args):
 
 
 def scenario():
-    """(trajectories, per-robot CPU scan clouds, SlamConfig) of phase 4."""
+    """(trajectories, per-robot CPU scan clouds, SlamConfig) of phase 5."""
     import torch
 
     from mr_slam_torch.datasets import synthetic
@@ -114,17 +152,23 @@ def phase_card():
     return smi
 
 
+KERNELS = ("vgicp_accum", "terrain_stencil")
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from mr_slam_torch import native
     from mr_slam_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    path = cuda_build.build("vgicp_accum")
-    dt = time.perf_counter() - t0
-    log(f"[build] {path.name} in {dt:.1f} s")
-    for line in cuda_build.build_log("vgicp_accum").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
+        paths = list(pool.map(cuda_build.build, KERNELS))
+    log(f"[build] {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        for line in cuda_build.build_log(name).splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling entry")):
+                log(f"[build] {name} ptxas: {line.strip()}")
     native.load()
     log("[build] native max-clique solver loaded")
 
@@ -225,6 +269,125 @@ def phase_kernel(dev):
     return record
 
 
+def stencil_inputs(kind: str, size: int, res: float = 0.2):
+    """(height, valid) numpy: the reference bench's random field
+    (`bench.py:223`: N(0, 1) heights, 80 % valid) or smooth rolling
+    terrain with 1 cm noise and 80 % valid cells."""
+    rng = np.random.default_rng({"random": 0, "terrain": 1}[kind])
+    if kind == "random":
+        return (rng.normal(0, 1, (size, size)).astype(np.float32),
+                rng.random((size, size)) > 0.2)
+    ii = np.arange(size, dtype=np.float32)[:, None] * res
+    jj = np.arange(size, dtype=np.float32)[None, :] * res
+    h = 0.3 * np.sin(ii / 3.0) + 0.25 * np.cos(jj / 4.0) \
+        + 0.01 * rng.standard_normal((size, size))
+    return h.astype(np.float32), rng.random((size, size)) < 0.8
+
+
+def features64(height, valid, res: float):
+    """(slope, roughness) of the 5x5 plane fit in float64, window-local
+    metre coordinates, the reference's formulas and det floor."""
+    H, W = height.shape
+    v = valid.astype(np.float64)
+    z = np.where(valid, height, 0.0).astype(np.float64)
+    vp, zp = np.pad(v, 2), np.pad(z, 2)
+    S = np.zeros((10, H, W))
+    r = float(np.float32(res))
+    for di in range(-2, 3):
+        for dj in range(-2, 3):
+            vs, zs = vp[2 + di:2 + di + H, 2 + dj:2 + dj + W], zp[2 + di:2 + di + H, 2 + dj:2 + dj + W]
+            x, y = di * r, dj * r
+            S += np.stack([vs, vs * x, vs * y, vs * zs, vs * x * x, vs * y * y, vs * x * y,
+                           vs * x * zs, vs * y * zs, vs * zs * zs])
+    n = np.maximum(S[0], 1.0)
+    mx, my, mz = S[1] / n, S[2] / n, S[3] / n
+    cxx, cyy, cxy = S[4] / n - mx * mx, S[5] / n - my * my, S[6] / n - mx * my
+    cxz, cyz, czz = S[7] / n - mx * mz, S[8] / n - my * mz, S[9] / n - mz * mz
+    det = cxx * cyy - cxy * cxy
+    det = np.where(np.abs(det) < 1e-9, 1e-9, det)
+    a = (cyy * cxz - cxy * cyz) / det
+    b = (cxx * cyz - cxy * cxz) / det
+    enough = S[0] >= 3
+    slope = np.where(enough, np.arctan(np.sqrt(a * a + b * b)), 0.0)
+    rough = np.where(enough, np.sqrt(np.maximum(czz - (a * cxz + b * cyz), 0.0)), 0.0)
+    return slope, rough
+
+
+def _window_count(valid):
+    """Valid cells in each 5x5 window (exact integer sums)."""
+    import torch
+    import torch.nn.functional as F
+
+    H, W = valid.shape
+    vp = F.pad(valid.to(torch.int32), (2, 2, 2, 2))
+    return sum(vp[2 + di:2 + di + H, 2 + dj:2 + dj + W]
+               for di in range(-2, 3) for dj in range(-2, 3))
+
+
+def check_stencil(tag, height, valid, res):
+    """The kernel against the plain version on the card: step and the
+    enough mask exact, the other layers within STENCIL_ATOL, a
+    bit-identical rerun. Returns (max abs error, kernel ms, plain ms)."""
+    import torch
+
+    from mr_slam_torch.ops import hopper_stencil
+
+    out = hopper_stencil.terrain_features(height, valid, res)
+    again = hopper_stencil.terrain_features(height, valid, res)
+    ref = hopper_stencil.terrain_features_plain(height, valid, res)
+    torch.cuda.synchronize()
+    names = ("slope", "roughness", "step", "traversability")
+    errs = {n: (a - b).abs().max().item() for n, a, b in zip(names, out, ref)}
+    if not torch.equal(out[2], ref[2]):
+        raise AssertionError(f"{tag}: step differs from the plain version by {errs['step']}")
+    enough = _window_count(valid) >= 3
+    for name, layer, empty in zip(names, out, (0.0, 0.0, None, 0.5)):
+        if empty is None:
+            continue
+        unknown = ~enough if name != "traversability" else ~(enough & valid)
+        if not bool((layer[unknown] == empty).all()):
+            raise AssertionError(f"{tag}: {name} does not follow the enough mask")
+    bad = {n: e for n, e in errs.items() if not e <= STENCIL_ATOL}
+    if bad:
+        raise AssertionError(f"{tag}: kernel vs plain beyond {STENCIL_ATOL}: {bad}")
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{tag}: two launches are not bit-identical")
+    k_ms = _cuda_ms(lambda: hopper_stencil.terrain_features(height, valid, res), 50)
+    p_ms = _cuda_ms(lambda: hopper_stencil.terrain_features_plain(height, valid, res), 5)
+    H, W = height.shape
+    exact = sum(e == 0.0 for e in errs.values())
+    log(f"[stencil] {tag}: ok; max abs err " + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
+        + f" ({exact}/4 layers bit-equal); bit-identical rerun; kernel {k_ms:.4f} ms "
+        f"({21 * H * W / (k_ms * 1e-3) / 1e9:.1f} GB/s at 21 B/cell), plain {p_ms:.4f} ms")
+    return max(errs.values()), k_ms, p_ms, out, ref
+
+
+def phase_stencil(dev):
+    import torch
+
+    res = torch.tensor(0.2, device=dev)
+    worst = 0.0
+    for size in STENCIL_SIZES:
+        for kind in ("random", "terrain"):
+            h, v = stencil_inputs(kind, size)
+            err, _, _, out, ref = check_stencil(
+                f"{kind} {size}x{size}", torch.from_numpy(h).to(dev), torch.from_numpy(v).to(dev),
+                res)
+            worst = max(worst, err)
+            # conditioning: the far corner (256^2, 2 cells of halo) against float64
+            c = slice(size - 258, size)
+            s64, r64 = features64(h[c, c], v[c, c], 0.2)
+            for name, layers in (("kernel", out), ("plain", ref)):
+                ds = np.abs(layers[0][c, c].cpu().numpy() - s64)[2:, 2:].max()
+                dr = np.abs(layers[1][c, c].cpu().numpy() - r64)[2:, 2:].max()
+                log(f"[stencil] {kind} {size}x{size} far corner, {name} vs float64: "
+                    f"slope {ds:.3g} rad, roughness {dr:.3g} m")
+                if not (ds < 1e-3 and dr < 1e-3):
+                    raise AssertionError(f"{kind} {size}: {name} far-corner error beyond 1e-3")
+            del out, ref
+    return worst
+
+
 def _ate(res, trajs, r):
     import torch
 
@@ -241,7 +404,7 @@ def phase_main(dev):
     import torch
 
     from mr_slam_torch.geometry import se3
-    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
     from mr_slam_torch.ops import pointcloud as pcl
     from mr_slam_torch.runtime import observability as obs
     from mr_slam_torch.runtime import pipeline
@@ -266,6 +429,7 @@ def phase_main(dev):
     torch.cuda.synchronize()  # warm-up: first-call overheads out of the timed run
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
+    hopper_stencil.reset_launch_count()
     res, wall = run()
     launches = hopper_vgicp.launch_count()
     peak = torch.cuda.max_memory_allocated()
@@ -293,6 +457,8 @@ def phase_main(dev):
 
     if launches <= 0:
         raise AssertionError("the VGICP kernel was not launched on the main path")
+    if not same:
+        raise AssertionError("two pipeline.run calls gave different optimized poses")
     if not inter:
         raise AssertionError(f"no inter-robot loop accepted (all: {len(res.loops)})")
     for r, a in enumerate(ates):
@@ -300,7 +466,113 @@ def phase_main(dev):
             raise AssertionError(f"robot {r} keyframe ATE {a:.3f} m >= 1.0 m")
         if JAX_REF_ATE is not None and not a <= 1.25 * JAX_REF_ATE[r] + 0.05:
             raise AssertionError(f"robot {r} ATE {a:.3f} m beyond 1.25 x JAX {JAX_REF_ATE[r]} + 0.05")
-    return launches
+    return launches, res, scans, cfg
+
+
+def _synced(fn, timers, name):
+    """fn() with the device synchronised, its wall time added to timers."""
+    import torch
+
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    timers[name] = timers.get(name, 0.0) + time.perf_counter() - t
+    return out
+
+
+def gem_ticks(res, scans, cfg, dev):
+    """Robot 0's frames through the reference's per-frame GEM tick
+    (`runtime/online.py:400-421`): shift to the robot, predict, the
+    motion-drift variance update, fuse the frame; then features and
+    costmap on the final local grid."""
+    import torch
+
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.mapping import costmap, elevation
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    e = cfg.elevation
+    odo = res.robots[0].odom_poses
+    first = se3.index(odo, 0)
+    m = elevation.init(e.size, e.resolution, center=(float(first.t[0]), float(first.t[1])),
+                       device=dev)
+    timers: dict[str, float] = {}
+    last = None
+    for i in range(N_FRAMES):
+        pose = se3.index(odo, i)
+        m = _synced(lambda: elevation.shift(m, pose.t[:2]), timers, "shift")
+        m = _synced(lambda: elevation.predict(m), timers, "predict")
+        if last is not None:
+            dt = float(torch.linalg.norm(pose.t - last.t))
+            c = (torch.trace(last.R.T @ pose.R) - 1.0) / 2.0
+            drot = float(torch.arccos(torch.clamp(c, -1.0, 1.0)))
+            m = _synced(lambda: elevation.motion_update(
+                m, pose.t[:2], sigma_z=e.drift_z * dt, sigma_tilt=e.drift_tilt * drot),
+                timers, "motion_update")
+        last = pose
+        scan = pcl.PointCloud(scans[0].xyz[i], scans[0].mask[i])
+        m = _synced(lambda: elevation.fuse(m, pcl.transform(scan, pose),
+                                           elevation.sensor_variance(scan.xyz)), timers, "fuse")
+    feats = _synced(lambda: elevation.features(m), timers, "features")
+    cm = _synced(lambda: costmap.from_elevation(m, feats, travers_thresh=e.travers_thresh),
+                 timers, "costmap")
+    center = m.origin.cpu().numpy() + e.size * e.resolution / 2
+    off = float(np.linalg.norm(center - last.t[:2].cpu().numpy()))
+    n_valid = int(m.valid.sum())
+    cost = cm.cost.cpu().numpy()
+    log(f"[map] GEM ticks, robot 0, {N_FRAMES} frames on a {e.size}x{e.size} grid: "
+        + ", ".join(f"{k} {v * 1e3 / N_FRAMES:.3f} ms/frame" if k not in ("features", "costmap")
+                    else f"{k} {v * 1e3:.3f} ms" for k, v in timers.items())
+        + f"; {n_valid} valid cells, free {(cost == 0).sum()}, lethal {(cost == 100).sum()}; "
+        f"grid centre {off:.3f} m from the robot")
+    if not off < 2 * e.resolution + 1e-3:
+        raise AssertionError(f"local grid not centred on the robot ({off:.3f} m off)")
+    if not n_valid > 100:
+        raise AssertionError(f"local grid holds only {n_valid} valid cells")
+
+
+def phase_map(res, scans, cfg, dev):
+    import torch
+
+    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
+    from mr_slam_torch.runtime import observability as obs
+    from mr_slam_torch.runtime import pipeline
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    merged = pipeline.compose_map(res)
+    torch.cuda.synchronize()
+    log(f"[map] compose_map {time.perf_counter() - t:.3f} s: {int(merged.mask.sum())} points "
+        f"at leaf 0.5")
+
+    obs.tracer.stats.clear()
+    hopper_stencil.reset_launch_count()
+    hopper_vgicp.reset_launch_count()
+    emap, feats, cm = pipeline.build_elevation(res, cfg, size=MAP_SIZE)
+    launches = hopper_stencil.launch_count()
+    compose_s = obs.tracer.report()["backend.compose"]["total_s"]
+    cost = cm.cost
+    counts = dict(valid=int(emap.valid.sum()), free=int((cost == 0).sum()),
+                  lethal=int((cost == 100).sum()))
+    gaps = {k: counts[k] / JAX_REF_MAP[k] - 1.0 for k in counts}
+    log(f"[map] build_elevation (span backend.compose) {compose_s:.3f} s; terrain_stencil "
+        f"launches {launches}; cells {counts}, reference map {JAX_REF_MAP}, gap "
+        + ", ".join(f"{k} {100 * g:+.2f} %" for k, g in gaps.items()))
+    again = pipeline.build_elevation(res, cfg, size=MAP_SIZE)
+    same = all(torch.equal(a, b) for x, y in zip((emap, feats, cm), again) for a, b in zip(x, y))
+    log(f"[map] second build_elevation bit-identical: {same}")
+    err, k_ms, p_ms, _, _ = check_stencil(f"build_elevation grid {MAP_SIZE}x{MAP_SIZE}",
+                                          emap.height, emap.valid, emap.resolution)
+    if launches <= 0:
+        raise AssertionError("the stencil kernel was not launched by build_elevation")
+    if not (counts["free"] > 100 and counts["lethal"] > 10):
+        raise AssertionError(f"costmap lacks free or lethal cells: {counts}")
+    if not all(abs(g) <= 0.05 for g in gaps.values()):
+        raise AssertionError(f"cell counts beyond 5 % of the reference map: {gaps}")
+    if not same:
+        raise AssertionError("two build_elevation calls differ")
+    gem_ticks(res, scans, cfg, dev)
+    return launches, dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
 
 
 def main() -> int:
@@ -309,12 +581,18 @@ def main() -> int:
     smi = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
-    kernel = phase_kernel(dev)
-    launches = phase_main(dev)
-    print(json.dumps({"kernels": [dict(
-        name="vgicp_accum", route="cuda", source="mr_slam_torch/csrc/vgicp_accum.cu",
-        replaces="mr_slam_tpu/ops/pallas_vgicp.py:77", launches=launches, **kernel,
-    )]}))
+    vgicp = phase_kernel(dev)
+    stencil_err = phase_stencil(dev)
+    vgicp_launches, res, scans, cfg = phase_main(dev)
+    stencil_launches, stencil = phase_map(res, scans, cfg, dev)
+    stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err)
+    print(json.dumps({"kernels": [
+        dict(name="vgicp_accum", route="cuda", source="mr_slam_torch/csrc/vgicp_accum.cu",
+             replaces="mr_slam_tpu/ops/pallas_vgicp.py:77", launches=vgicp_launches, **vgicp),
+        dict(name="terrain_stencil", route="cuda", source="mr_slam_torch/csrc/terrain_stencil.cu",
+             replaces="mr_slam_tpu/ops/pallas_stencil.py:71", launches=stencil_launches,
+             **stencil),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

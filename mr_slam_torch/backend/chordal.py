@@ -6,8 +6,10 @@ Stage 1 solves the chordal rotation relaxation by CG and projects to
 SO(3); stage 2 runs Gauss-Newton on the BetweenChordalFactor residuals
 with Jacobi-preconditioned CG, Cauchy IRLS weights on loop edges.
 Every H x product is a gather over edge endpoints, a per-edge Jacobian
-contraction and a scatter-add (`index_add_`, float atomics on the card)
-back to nodes. The reference's `lax.scan`s are Python loops: with the
+contraction and a scatter-add back to nodes through one
+`segment.ScatterPlan` per solve (the edge set is fixed during a solve):
+a fixed summation order, so reruns on the card are bit-identical. The
+reference's `lax.scan`s are Python loops: with the
 default budget (60 + 12 x 40 CG steps, ~540 in all, each ~20 small
 kernels) a solve is launch-bound on the card.
 """
@@ -19,6 +21,7 @@ import torch
 
 from ..geometry import so3
 from ..geometry.se3 import Pose
+from ..ops import segment
 from .factor_graph import FactorGraph
 
 
@@ -36,10 +39,14 @@ def _edge_weights(g: FactorGraph):
     return w * g.edge_w_rot, w * g.edge_w_trans
 
 
-def _scatter(n: int, ei, vi, ej, vj) -> torch.Tensor:
-    """zeros((n, ...)) .add at ei of vi, then at ej of vj."""
-    out = torch.zeros((n, *vi.shape[1:]), dtype=vi.dtype, device=vi.device)
-    return out.index_add_(0, ei, vi).index_add_(0, ej, vj)
+def scatter_plan(g: FactorGraph) -> segment.ScatterPlan:
+    """The node scatter of a solve: per-edge values at edge_i, then at
+    edge_j, summed into (node_capacity, ...). Unused edge slots carry
+    zero weight, so every value they scatter is zero."""
+    return segment.ScatterPlan(
+        torch.cat([g.edge_i, g.edge_j]), g.node_capacity,
+        keep=torch.cat([g.edge_valid, g.edge_valid]),
+    )
 
 
 def rotation_init(
@@ -47,12 +54,13 @@ def rotation_init(
     anchors: torch.Tensor,
     iters: int = 60,
     anchor_weight: float = 1e3,
+    scatter: segment.ScatterPlan | None = None,
 ) -> torch.Tensor:
     """Solve min sum_e w_e |X_j - X_i Rij|_F^2 (+ anchored rotations) over
     X in R^{N x 3 x 3} by CG on the normal equations, then project to
     SO(3). `anchor_weight` is softer than the pose stage's (a 1e6 anchor
     row stalls CG from a warm start)."""
-    N = g.node_capacity
+    scatter = scatter or scatter_plan(g)
     w_rot, _ = _edge_weights(g)
     Rij = g.edge_meas.R
     ei, ej = g.edge_i, g.edge_j
@@ -63,7 +71,7 @@ def rotation_init(
     def A(X):
         d = X[ej] - X[ei] @ Rij
         gi = -(d @ Rij.transpose(-1, -2))
-        return _scatter(N, ei, wr * gi, ej, wr * d) + aw[:, None, None] * X
+        return scatter(wr * gi, wr * d) + aw[:, None, None] * X
 
     b = aw[:, None, None] * anchor_R
     X = anchor_R  # warm start from the current estimate
@@ -133,11 +141,11 @@ def _jt(Jb: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (Jb.transpose(-1, -2) @ v[..., None])[..., 0]
 
 
-def _hessian_diag(J, row_w, ei, ej, N):
+def _hessian_diag(J, row_w, scatter):
     """(N, 6) diagonal of the GN normal matrix (Jacobi preconditioner)."""
     di = torch.cat([_jt(J["phi_i"] ** 2, row_w), _jt(J["dt_i"] ** 2, row_w)], dim=1)
     dj = torch.cat([_jt(J["phi_j"] ** 2, row_w), _jt(J["dt_j"] ** 2, row_w)], dim=1)
-    return _scatter(N, ei, di, ej, dj)
+    return scatter(di, dj)
 
 
 def optimize(
@@ -149,7 +157,8 @@ def optimize(
     (invalid nodes keep their input pose). `anchors`: (N,) bool — one
     per connected component."""
     N = g.node_capacity
-    R = rotation_init(g, anchors, config.rot_cg_iters)
+    scatter = scatter_plan(g)
+    R = rotation_init(g, anchors, config.rot_cg_iters, scatter=scatter)
     R = torch.where(g.node_valid[:, None, None], R, g.poses.R)
     t = g.poses.t
     aw = anchors.to(torch.float32) * config.anchor_weight
@@ -171,16 +180,16 @@ def optimize(
             WJx = row_w * Jx
             gi = torch.cat([_jt(J["phi_i"], WJx), _jt(J["dt_i"], WJx)], dim=1)
             gj = torch.cat([_jt(J["phi_j"], WJx), _jt(J["dt_j"], WJx)], dim=1)
-            return _scatter(N, ei, gi, ej, gj) + (aw[:, None] + config.damping) * x
+            return scatter(gi, gj) + (aw[:, None] + config.damping) * x
 
         Wr = row_w * r
         bi = torch.cat([_jt(J["phi_i"], Wr), _jt(J["dt_i"], Wr)], dim=1)
         bj = torch.cat([_jt(J["phi_j"], Wr), _jt(J["dt_j"], Wr)], dim=1)
-        b = -_scatter(N, ei, bi, ej, bj)
+        b = -scatter(bi, bj)
         # anchor residual pull (keep anchors at their initial pose)
         phi_anchor = so3.log(R @ anchor_R0.transpose(-1, -2))
         b = b - aw[:, None] * torch.cat([phi_anchor, t - anchor_t0], dim=1)
-        diag = _hessian_diag(J, row_w, ei, ej, N) + aw[:, None] + config.damping
+        diag = _hessian_diag(J, row_w, scatter) + aw[:, None] + config.damping
         Minv = 1.0 / torch.clamp(diag, min=1e-8)
 
         x = torch.zeros((N, 6), device=t.device)

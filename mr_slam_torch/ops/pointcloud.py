@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..devconst import const
+from . import segment
 
 
 class PointCloud(NamedTuple):
@@ -68,7 +69,8 @@ def voxel_downsample(
     spans at most ~2,700 cells at leaf 0.15 over +-200 m, so the key
     fits in 36 bits). A stable sort, run starts, and segment sums give
     one centroid per occupied voxel, in ascending (i, j, k) order — the
-    order matters downstream, where points are picked by position.
+    order matters downstream, where points are picked by position. The
+    segment sums add in point order on every device (`segment`).
     Points outside `bounds` are dropped. Leading batch dims are
     independent clouds.
 
@@ -106,10 +108,8 @@ def voxel_downsample(
     seg = torch.where(svalid & (seg < capacity), seg, torch.full_like(seg, capacity))
     flat = (seg + torch.arange(B, device=dev)[:, None] * (capacity + 1)).reshape(-1)
     w = svalid.to(torch.float32).reshape(-1)
-    sums = torch.zeros((B * (capacity + 1), 3), dtype=torch.float32, device=dev)
-    sums.index_add_(0, flat, sxyz.reshape(-1, 3) * w[:, None])
-    cnts = torch.zeros((B * (capacity + 1),), dtype=torch.float32, device=dev)
-    cnts.index_add_(0, flat, w)
+    sums = segment.scatter_sum(B * (capacity + 1), flat, sxyz.reshape(-1, 3) * w[:, None])
+    cnts = segment.scatter_sum(B * (capacity + 1), flat, w)
     sums = sums.reshape(B, capacity + 1, 3)[:, :capacity]
     cnts = cnts.reshape(B, capacity + 1)[:, :capacity]
     out_mask = cnts > 0

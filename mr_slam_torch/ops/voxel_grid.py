@@ -20,9 +20,8 @@ Port notes:
     — an IEEE division (dividing a CUDA tensor by a Python float would
     multiply by the reciprocal and move points on voxel faces);
   * scatter-min is `scatter_reduce_(..., "amin")`; scatter-add is
-    `index_add_`, which on the card uses float atomics: cell moments can
-    differ by rounding from run to run (the kernel itself is
-    deterministic, see `hopper_vgicp`);
+    `segment.scatter_sum`, which adds each cell's points in index order
+    on every device (no float atomics), so builds are bit-stable;
   * `build`, `lookup*` take any leading batch shape (the reference
     vmaps them over verify candidates): batch item b uses table rows
     b*H .. b*H + H - 1 of the flattened table.
@@ -34,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..devconst import const
+from . import segment
 from .pointcloud import PointCloud
 
 _P1, _P2, _P3 = 0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D
@@ -171,15 +171,11 @@ def build(
     contrib = mask.reshape(-1) & torch.all(ijk == cell_coord[gslot], dim=-1)
     w = contrib.to(torch.float32)
     pts = xyz.reshape(-1, 3)
-    count = torch.zeros((B * H,), dtype=torch.float32, device=dev).index_add_(0, gslot, w)
-    xsum = torch.zeros((B * H, 3), dtype=torch.float32, device=dev).index_add_(
-        0, gslot, pts * w[:, None]
-    )
+    count = segment.scatter_sum(B * H, gslot, w)
+    xsum = segment.scatter_sum(B * H, gslot, pts * w[:, None])
     mean = xsum / torch.clamp(count[:, None], min=1.0)
     xx = (pts[:, :, None] * pts[:, None, :]).reshape(-1, 9)
-    xxsum = torch.zeros((B * H, 9), dtype=torch.float32, device=dev).index_add_(
-        0, gslot, xx * w[:, None]
-    )
+    xxsum = segment.scatter_sum(B * H, gslot, xx * w[:, None])
     cov = xxsum.reshape(-1, 3, 3) / torch.clamp(count[:, None, None], min=1.0) - (
         mean[:, :, None] * mean[:, None, :]
     )
@@ -291,10 +287,10 @@ def insert(grid: VoxelGrid, pc: PointCloud, min_points: int = 1) -> VoxelGrid:
     mean0 = grid.mean
     xsum = mean0 * count0[:, None]
     xxsum = (grid.cov + mean0[:, :, None] * mean0[:, None, :]) * count0[:, None, None]
-    count = count0.index_add(0, slot, w)
-    xsum = xsum.index_add(0, slot, pc.xyz * w[:, None])
+    count = segment.index_add(count0, slot, w)
+    xsum = segment.index_add(xsum, slot, pc.xyz * w[:, None])
     xx = pc.xyz[:, :, None] * pc.xyz[:, None, :]
-    xxsum = xxsum.reshape(H, 9).index_add(0, slot, (xx * w[:, None, None]).reshape(n, 9))
+    xxsum = segment.index_add(xxsum.reshape(H, 9), slot, (xx * w[:, None, None]).reshape(n, 9))
     mean = xsum / torch.clamp(count[:, None], min=1.0)
     cov = xxsum.reshape(H, 3, 3) / torch.clamp(count[:, None, None], min=1.0) - (
         mean[:, :, None] * mean[:, None, :]

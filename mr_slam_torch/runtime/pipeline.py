@@ -5,6 +5,9 @@
   batched loop retrieval + chunked VGICP verification -> per-robot-pair
   PCM -> chordal PGO
 
+and the products of a finished run: the merged elevation map and its
+costmap (`build_elevation`), and the merged cloud (`compose_map`).
+
 Host Python orchestrates stage order and the small dynamic loop list;
 every heavy stage runs on the device of the input scans. Single process
 only (the reference's multi-process loop exchange and sharded PGO are
@@ -325,3 +328,56 @@ def run_backend(robots: list[RobotResult], cfg: SlamConfig) -> SlamResult:
     return SlamResult(
         robots=robots, graph=graph, opt_poses=opt, node_of=node_of, loops=accepted,
     )
+
+
+# --------------------------------------------------------------------------
+# products of a finished run
+# --------------------------------------------------------------------------
+
+
+def _optimized_keyframes(result: SlamResult):
+    """Per robot with keyframes: (every keyframe point moved by its
+    optimized pose (K * P, 3), mask (K * P,))."""
+    out = []
+    for r, rr in enumerate(result.robots):
+        K = int(rr.store.count)
+        if K == 0:
+            continue
+        ids = torch.as_tensor(result.node_of[r, :K], device=result.opt_poses.t.device)
+        R, t = result.opt_poses.R[ids], result.opt_poses.t[ids]
+        pts = torch.einsum("kab,kpb->kpa", R, rr.store.xyz[:K]) + t[:, None, :]
+        out.append((pts.reshape(-1, 3), rr.store.mask[:K].reshape(-1)))
+    return out
+
+
+def build_elevation(result: SlamResult, cfg: SlamConfig, center=(0.0, 0.0), size: int = 600):
+    """Fuse every optimized keyframe cloud into one global 2.5D elevation
+    map, then terrain features and the costmap — the reference's "merged
+    elevation map -> costmap" product (`composeGlobalMap` +
+    `pointMap_layer`). `size` cells at cfg.elevation.resolution, on the
+    device of the result. On a CUDA device the features run the stencil
+    kernel. Returns (ElevationMap, TerrainFeatures, Costmap)."""
+    from ..mapping import costmap as costmap_mod
+    from ..mapping import elevation
+
+    dev = result.opt_poses.t.device
+    with obs.tracer.span("backend.compose"):
+        emap = elevation.init(size=size, resolution=cfg.elevation.resolution, center=center,
+                              device=dev)
+        for xyz, mask in _optimized_keyframes(result):
+            cloud = pcl.park(pcl.PointCloud(xyz, mask))
+            emap = elevation.fuse(emap, cloud, elevation.sensor_variance(cloud.xyz))
+        feats = elevation.features(emap)
+        cm = costmap_mod.from_elevation(emap, feats, travers_thresh=cfg.elevation.travers_thresh)
+        _sync(dev)
+    return emap, feats, cm
+
+
+def compose_map(result: SlamResult, leaf: float = 0.5, capacity: int = 1 << 17) -> pcl.PointCloud:
+    """Merged global cloud: every keyframe re-transformed by its optimized
+    pose, voxel-merged (`composeGlobalMap`,
+    `global_manager.cpp:2090-2236`)."""
+    parts = _optimized_keyframes(result)
+    merged = pcl.park(pcl.PointCloud(torch.cat([x for x, _ in parts]),
+                                     torch.cat([m for _, m in parts])))
+    return pcl.voxel_downsample(merged, leaf, capacity)

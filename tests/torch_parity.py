@@ -102,3 +102,80 @@ def rot_err_deg(Ra, Rb) -> float:
     M = np.asarray(Ra, np.float64) @ np.asarray(Rb, np.float64).T
     c = np.clip((np.trace(M) - 1.0) / 2.0, -1.0, 1.0)
     return float(np.degrees(np.arccos(c)))
+
+
+# --------------------------------------------------------------------------
+# elevation / costmap state, both directions through numpy
+# --------------------------------------------------------------------------
+
+
+def emap_to_jax(m):
+    from mr_slam_tpu.mapping import elevation as jel
+
+    return jel.ElevationMap(*(to_jax(a) for a in m))
+
+
+def emap_to_torch(m):
+    from mr_slam_torch.mapping import elevation as tel
+
+    return tel.ElevationMap(*(to_torch(a) for a in m))
+
+
+def feats_to_jax(f):
+    from mr_slam_tpu.mapping import elevation as jel
+
+    return jel.TerrainFeatures(*(to_jax(a) for a in f))
+
+
+def feats_to_torch(f):
+    from mr_slam_torch.mapping import elevation as tel
+
+    return tel.TerrainFeatures(*(to_torch(a) for a in f))
+
+
+def color_to_jax(cg):
+    from mr_slam_tpu.mapping import elevation as jel
+
+    return jel.ColorGrid(*(to_jax(a) for a in cg))
+
+
+def color_to_torch(cg):
+    from mr_slam_torch.mapping import elevation as tel
+
+    return tel.ColorGrid(*(to_torch(a) for a in cg))
+
+
+def costmap_to_jax(cm):
+    from mr_slam_tpu.mapping import costmap as jcm
+
+    return jcm.Costmap(*(to_jax(a) for a in cm))
+
+
+def costmap_to_torch(cm):
+    from mr_slam_torch.mapping import costmap as tcm
+
+    return tcm.Costmap(*(to_torch(a) for a in cm))
+
+
+def slam_result_to_jax(res):
+    """A minimal reference `SlamResult` holding the port result's
+    keyframe stores, optimized poses and `node_of` — what the products
+    of a finished run (`build_elevation`, `compose_map`) read."""
+    from mr_slam_tpu.frontend import keyframes as jkf
+    from mr_slam_tpu.runtime import pipeline as jpipe
+
+    robots = []
+    for rr in res.robots:
+        s = rr.store
+        store = jkf.KeyframeStore(
+            xyz=to_jax(s.xyz), mask=to_jax(s.mask), poses=pose_to_jax(s.poses),
+            stamps=to_jax(s.stamps), count=to_jax(s.count), last_pose=pose_to_jax(s.last_pose),
+        )
+        robots.append(jpipe.RobotResult(
+            odom_poses=pose_to_jax(rr.odom_poses), store=store,
+            kf_frame_idx=np.asarray(rr.kf_frame_idx),
+        ))
+    return jpipe.SlamResult(
+        robots=robots, graph=None, opt_poses=pose_to_jax(res.opt_poses),
+        node_of=np.asarray(res.node_of), loops=[],
+    )
