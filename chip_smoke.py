@@ -14,17 +14,20 @@ Phases (each prints its own lines; any failure exits non-zero):
   3. kernel  — the VGICP accumulation kernel against its plain PyTorch
                version on the card at the loop-verify shapes (B = 8
                candidates x N = 16384 points; tables of 8192 and 32768
-               rows built by `voxel_grid.build`), both modes, with and
-               without a linearization center; two launches must be
-               bit-identical; CUDA-event times of both versions.
+               rows built by `voxel_grid.build`): hash and slot mode,
+               with and without a linearization center, the points
+               moved by `pose=` inside the kernel or taken as
+               transformed; then the main path's call and hash mode at
+               the first bench cell's batch (B = 64 x N = 4096, 2^14-row
+               tables, `bench_batch_inputs`). H, b and cost within TOL,
+               inliers equal, two launches bit-identical.
   4. stencil — the terrain-stencil kernel against its plain version at
                2048^2 (the reference's bench size) and 4096^2, on the
                bench's random field and on smooth terrain with 80 % valid
                cells: step and the enough mask exact, the other layers
                within STENCIL_ATOL, a bit-identical rerun, and both
                within 1e-3 (rad / m) of a float64 evaluation on the
-               256^2 far corner; CUDA-event times and the kernel's GB/s
-               at 21 B per cell.
+               256^2 far corner.
   5. main    — `runtime.pipeline.run` on the card: 3 robots on the ring
                road of `tests/test_multirobot.py` (radius 22 m, 0.55
                laps, phases 2 pi r / 3, 40 frames each), 32x1024-ray
@@ -41,18 +44,30 @@ Phases (each prints its own lines; any failure exits non-zero):
                `pipeline.compose_map` and `pipeline.build_elevation(size=
                600)`. Checks: the stencil kernel launched, the costmap
                has free and lethal cells, valid / free / lethal counts
-               within 5 % of the reference map's (JAX_REF_MAP), a second
+               within 5 % of the reference map's (JAX_REF_MAP), the
+               kernel's lethal cells within 0.1 % of a float64
+               classification of the same map (`lethal64`), a second
                build bit-identical, and the kernel against its plain
-               version on that 600^2 grid (timed). Then robot 0's 40
-               frames through the reference's per-frame GEM tick (shift,
+               version on that 600^2 grid. Then robot 0's 40 frames
+               through the reference's per-frame GEM tick (shift,
                predict, motion_update, fuse; `runtime/online.py:400-421`)
                on an `ElevationCfg()` grid, features and costmap on the
                last grid, which must be centred on the robot; stage
                times.
 
-The last three lines are the kernels' JSON record (the counts of the
-main path's runs of phases 5 and 6), the card's name and power limit as
-`nvidia-smi` prints them, and `{"ok": true, "device": {...}}`.
+Every kernel check of phases 3, 4 and 6 prints, for its shape, the
+device time (`graph_ms`: calls captured in a CUDA graph, replays timed
+with CUDA events), the eager call time (`_cuda_ms`), the plain
+version's time, and the bound (`bound`: bytes over the HBM rate or f32
+operations over the f32 peak, whichever is larger) with the device
+time's share of it.
+
+The last three lines are the kernels' JSON record (the launch counts of
+the main path's runs of phases 5 and 6; the times, error and bound of
+each kernel at the main path's shape: VGICP's fine/slot/center/pose
+call at B = 8, the stencil at the 600^2 map grid), the card's name and
+power limit as `nvidia-smi` prints them, and `{"ok": true, "device":
+{...}}`.
 """
 from __future__ import annotations
 
@@ -61,6 +76,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -174,6 +190,8 @@ def phase_build():
 
 
 def _cuda_ms(fn, iters):
+    """Eager call time: CUDA events around `iters` back-to-back calls,
+    so the wrapper's host work is in it whenever it exceeds the kernel."""
     import torch
 
     for _ in range(3):
@@ -189,11 +207,100 @@ def _cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls=100, replays=5):
+    """Device time per call: `calls` calls captured in one CUDA graph,
+    its replays timed with CUDA events. The host's wrapper work runs only
+    at capture, so what is left is the kernels and the gaps between
+    graph nodes. Inputs stay in L2 from call to call where they fit, as
+    they do across the inner GN steps of one registration."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+# The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): HBM3 rate
+# and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+VGICP_OPS_PER_POINT = 200   # gates, adjugate inverse, 29 integrands
+STENCIL_OPS_PER_CELL = 200  # separable moments, closed form, blend
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
+    operations over the f32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def vgicp_bound(mask, table, slot=None, found=None, leaf=None, xyz=None, pose=None,
+                center=None, **_):
+    """Bound of one accumulation call, each byte counted once: per point
+    xyz 12 + mask 1 (+ slot 4 + found 1 in slot mode), 64 B per distinct
+    table row the inputs need (slot mode: the found slots of valid
+    points; hash mode: the hashed slots of valid points, whose rows
+    decide `found`), the pose (48 B) and center (12 B) per item, and the
+    (B, 44) f32 result."""
+    import torch
+
+    from mr_slam_torch.ops import voxel_grid
+
+    B, N = mask.shape
+    if slot is None:
+        if pose is not None:
+            from mr_slam_torch.ops.hopper_vgicp import transform_plain
+
+            xyz = transform_plain(pose, xyz)
+        slot, found = voxel_grid.lookup_slots(voxel_grid.VoxelGrid(table, leaf), xyz)
+        need = mask
+        per_point = 13
+    else:
+        need = mask & found
+        per_point = 18
+    rows = sum(int(torch.unique(slot[b][need[b]]).numel()) for b in range(B))
+    n_bytes = B * N * per_point + 64 * rows + B * 44 * 4
+    n_bytes += B * 48 * (pose is not None) + B * 12 * (center is not None)
+    return bound(n_bytes, B * N * VGICP_OPS_PER_POINT) + (rows,)
+
+
+def stencil_bound(H, W):
+    """Bound of one stencil call: height 4 B + valid 1 B read, four f32
+    layers written, 21 B per cell."""
+    return bound(21 * H * W, STENCIL_OPS_PER_CELL * H * W)
+
+
+class VerifyInputs(NamedTuple):
+    xyz: object    # (B, N, 3) source points
+    mask: object   # (B, N) bool
+    pose: object   # se3.Pose (B,) that moves them
+    tp: object     # (B, N, 3) se3.apply(pose, xyz)
+    grids: dict    # name -> voxel_grid.VoxelGrid (B, H, 16)
+
+
 def verify_inputs(dev):
     """Loop-verify shaped inputs: B merged-submap-like clouds of the
     synthetic world (8 scans each, voxelized to N), plane-regularized
     coarse (leaf 2, 8192 rows) and fine (leaf 0.5, 32768 rows) tables of
-    them, and the clouds moved by small seeded poses."""
+    them, and small seeded poses that move the clouds."""
     import torch
 
     from mr_slam_torch.datasets import synthetic
@@ -218,54 +325,126 @@ def verify_inputs(dev):
     fine = voxel_grid.build(target, 0.5, 1 << 15, min_points=3, regularize="plane")
     xi = torch.as_tensor(rng.normal(0, [0.1, 0.1, 0.02, 0.005, 0.005, 0.02], (VERIFY_B, 6)),
                          dtype=torch.float32, device=dev)
-    tp = se3.apply(se3.exp(xi), target.xyz).contiguous()
-    mask = target.mask.contiguous()
-    return tp, mask, {"coarse": coarse, "fine": fine}
+    pose = se3.exp(xi)
+    pose = se3.Pose(pose.R.contiguous(), pose.t.contiguous())
+    xyz = target.xyz.contiguous()
+    return VerifyInputs(xyz, target.mask.contiguous(), pose, se3.apply(pose, xyz).contiguous(),
+                        {"coarse": coarse, "fine": fine})
+
+
+BENCH_B, BENCH_N, BENCH_ROWS = 64, 4096, 1 << 14
+
+
+def bench_batch_inputs(dev):
+    """The first bench cell's batch, as the reference bench builds it
+    (`bench.py:726-779`, drawn here with numpy): 64 targets of 4096
+    points (ground, two walls, 1 cm noise), plane-regularized 2^14-row
+    tables at leaf 0.5, and sources moved off them by seed-sized poses
+    (0.15 m / 0.03 rad normal); `pose` maps each source onto its target."""
+    import torch
+
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import pointcloud as pcl, voxel_grid
+
+    rng = np.random.default_rng(4321)
+    n3 = BENCH_N // 4
+    ground = np.concatenate([rng.uniform(-25, 25, (BENCH_B, BENCH_N - 2 * n3, 2)),
+                             np.zeros((BENCH_B, BENCH_N - 2 * n3, 1))], axis=-1)
+    wall1 = np.concatenate([rng.uniform(-25, 25, (BENCH_B, n3, 1)), np.full((BENCH_B, n3, 1), 12.0),
+                            rng.uniform(0, 5, (BENCH_B, n3, 1))], axis=-1)
+    wall2 = np.concatenate([np.full((BENCH_B, n3, 1), -10.0), rng.uniform(-25, 25, (BENCH_B, n3, 1)),
+                            rng.uniform(0, 5, (BENCH_B, n3, 1))], axis=-1)
+    xyz = np.concatenate([ground, wall1, wall2], axis=1)
+    xyz = xyz + 0.01 * rng.standard_normal(xyz.shape)
+    target = pcl.PointCloud(torch.as_tensor(xyz, dtype=torch.float32, device=dev),
+                            torch.ones((BENCH_B, BENCH_N), dtype=torch.bool, device=dev))
+    grid = voxel_grid.build(target, 0.5, BENCH_ROWS, min_points=3, regularize="plane")
+    xi = np.concatenate([0.15 * rng.standard_normal((BENCH_B, 3)),
+                         0.03 * rng.standard_normal((BENCH_B, 3))], axis=-1)
+    pose = se3.exp(torch.as_tensor(xi, dtype=torch.float32, device=dev))
+    pose = se3.Pose(pose.R.contiguous(), pose.t.contiguous())
+    src = se3.apply(se3.inverse(pose), target.xyz).contiguous()
+    return VerifyInputs(src, target.mask, pose, se3.apply(pose, src).contiguous(), {"bench": grid})
+
+
+def _times_line(tag, t):
+    return (f"{tag}: device {t['device_ms']:.5f} ms, call {t['ms']:.5f} ms, plain "
+            f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"device at {100 * t['bound_ms'] / t['device_ms']:.1f} % of it")
+
+
+def check_vgicp(tag, xyz, mask, table, kw):
+    """The kernel against its plain version on the card: H, b, cost
+    within TOL, inliers equal, a bit-identical rerun; then the device,
+    call and plain times and the bound. Returns the record."""
+    import torch
+
+    from mr_slam_torch.ops import hopper_vgicp
+
+    def call():
+        return hopper_vgicp.gn_accumulate(xyz, mask, table, **kw)
+
+    def plain():
+        return hopper_vgicp.gn_accumulate_plain(xyz, mask, table, **kw)
+
+    out, again, ref = call(), call(), plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, r in zip(("H", "b", "cost"), out[:3], ref[:3]):
+        rtol, atol = TOL[name]
+        errs[name] = (a - r).abs().max().item()
+        if not torch.allclose(a, r, rtol=rtol, atol=atol):
+            raise AssertionError(f"{tag}: {name} max abs err {errs[name]} beyond rtol {rtol} "
+                                 f"atol {atol}")
+    if not torch.equal(out[3], ref[3]):
+        raise AssertionError(f"{tag}: inliers differ: {out[3].tolist()} vs {ref[3].tolist()}")
+    if not all(torch.equal(x, y) for x, y in zip(out, again)):
+        raise AssertionError(f"{tag}: two launches are not bit-identical")
+    b_ms, b_by, _ = vgicp_bound(mask, table, xyz=xyz, **kw)
+    t = dict(max_abs_err=max(errs.values()), ms=_cuda_ms(call, 200), device_ms=graph_ms(call),
+             plain_ms=_cuda_ms(plain, 10), bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"[kernel] {tag}: ok; max abs err H {errs['H']:.3g} (|H| max "
+        f"{out[0].abs().max().item():.3g}) b {errs['b']:.3g} cost {errs['cost']:.3g}; inliers "
+        f"{out[3].sum().item():.0f} equal; bit-identical rerun")
+    log(_times_line(f"[kernel] {tag}", t))
+    return t
 
 
 def phase_kernel(dev):
-    import torch
+    """Every mode of the VGICP kernel against its plain version: hash and
+    slot, with and without a center, points moved by `pose=` inside the
+    kernel or taken as transformed, on the coarse and fine tables at the
+    loop-verify batch; then the main path's call and hash mode at the
+    first bench cell's batch (B = 64). Returns the main path's record
+    (fine table, slot mode, center, pose)."""
+    from mr_slam_torch.ops import voxel_grid
 
-    from mr_slam_torch.ops import hopper_vgicp, voxel_grid
-
-    tp, mask, grids = verify_inputs(dev)
-    log(f"[kernel] inputs: tp {tuple(tp.shape)}, valid points/item "
-        f"{mask.sum(1).min().item()}..{mask.sum(1).max().item()}, tables "
-        + ", ".join(f"{k} {tuple(g.packed.shape)}" for k, g in grids.items()))
-    center = tp[:, ::97].mean(dim=1).contiguous()
+    vi = verify_inputs(dev)
+    log(f"[kernel] inputs: xyz {tuple(vi.xyz.shape)}, valid points/item "
+        f"{vi.mask.sum(1).min().item()}..{vi.mask.sum(1).max().item()}, tables "
+        + ", ".join(f"{k} {tuple(g.packed.shape)}" for k, g in vi.grids.items()))
+    center = vi.tp[:, ::97].mean(dim=1).contiguous()
     record = None
-    for gname, grid in grids.items():
+    for gname, grid in vi.grids.items():
         table = grid.packed.contiguous()
-        slot, found = voxel_grid.lookup_slots(grid, tp)
+        slot, found = voxel_grid.lookup_slots(grid, vi.tp)
         for mode in ("hash", "slot"):
             for cen in (None, center):
-                kw = dict(leaf=grid.leaf) if mode == "hash" else dict(slot=slot, found=found)
-                kw.update(center=cen, max_corr2=1.0)
-                out = hopper_vgicp.gn_accumulate(tp, mask, table, **kw)
-                again = hopper_vgicp.gn_accumulate(tp, mask, table, **kw)
-                ref = hopper_vgicp.gn_accumulate_plain(tp, mask, table, **kw)
-                torch.cuda.synchronize()
-                errs = {}
-                for name, a, r in zip(("H", "b", "cost"), out[:3], ref[:3]):
-                    rtol, atol = TOL[name]
-                    ok = torch.allclose(a, r, rtol=rtol, atol=atol)
-                    errs[name] = (a - r).abs().max().item()
-                    if not ok:
-                        raise AssertionError(f"{gname}/{mode}/center={cen is not None}: {name} "
-                                             f"max abs err {errs[name]} beyond rtol {rtol} atol {atol}")
-                if not torch.equal(out[3], ref[3]):
-                    raise AssertionError(f"inliers differ: {out[3].tolist()} vs {ref[3].tolist()}")
-                if not all(torch.equal(x, y) for x, y in zip(out, again)):
-                    raise AssertionError("two launches are not bit-identical")
-                k_ms = _cuda_ms(lambda: hopper_vgicp.gn_accumulate(tp, mask, table, **kw), 200)
-                p_ms = _cuda_ms(lambda: hopper_vgicp.gn_accumulate_plain(tp, mask, table, **kw), 20)
-                tag = f"{gname}/{mode}/{'center' if cen is not None else 'origin'}"
-                log(f"[kernel] {tag}: ok; max abs err H {errs['H']:.3g} (|H| max "
-                    f"{out[0].abs().max().item():.3g}) b {errs['b']:.3g} cost {errs['cost']:.3g}; "
-                    f"inliers {out[3].sum().item():.0f} equal; bit-identical rerun; "
-                    f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-                if gname == "fine" and mode == "slot" and cen is not None:  # the main path's call
-                    record = dict(max_abs_err=max(errs.values()), ms=k_ms, plain_ms=p_ms)
+                for posed in (False, True):
+                    kw = dict(leaf=grid.leaf) if mode == "hash" else dict(slot=slot, found=found)
+                    kw.update(center=cen, max_corr2=1.0, pose=vi.pose if posed else None)
+                    tag = (f"B={VERIFY_B} {gname}/{mode}/{'center' if cen is not None else 'origin'}"
+                           f"/{'pose' if posed else 'transformed'}")
+                    t = check_vgicp(tag, vi.xyz if posed else vi.tp, vi.mask, table, kw)
+                    if gname == "fine" and mode == "slot" and cen is not None and posed:
+                        record = t  # the call of every inner GN step of loop verification
+    bi = bench_batch_inputs(dev)
+    grid = bi.grids["bench"]
+    slot, found = voxel_grid.lookup_slots(grid, bi.tp)
+    center = bi.tp.mean(dim=1).contiguous()
+    for tag, kw in ((f"B={BENCH_B} bench/slot/center/pose", dict(slot=slot, found=found, center=center)),
+                    (f"B={BENCH_B} bench/hash/origin/pose", dict(leaf=grid.leaf))):
+        check_vgicp(tag, bi.xyz, bi.mask, grid.packed, dict(kw, pose=bi.pose))
     return record
 
 
@@ -285,20 +464,26 @@ def stencil_inputs(kind: str, size: int, res: float = 0.2):
 
 
 def features64(height, valid, res: float):
-    """(slope, roughness) of the 5x5 plane fit in float64, window-local
-    metre coordinates, the reference's formulas and det floor."""
+    """(slope, roughness, step, enough) of the 5x5 window in float64:
+    the plane fit in window-local metre coordinates with the reference's
+    formulas and det floor, and the window's max - min."""
     H, W = height.shape
     v = valid.astype(np.float64)
     z = np.where(valid, height, 0.0).astype(np.float64)
     vp, zp = np.pad(v, 2), np.pad(z, 2)
+    zmax_p = np.pad(z, 2, constant_values=-np.inf)
+    zmin_p = np.pad(np.where(valid, height, np.inf).astype(np.float64), 2, constant_values=np.inf)
     S = np.zeros((10, H, W))
+    zmax, zmin = np.full((H, W), -np.inf), np.full((H, W), np.inf)
     r = float(np.float32(res))
     for di in range(-2, 3):
         for dj in range(-2, 3):
-            vs, zs = vp[2 + di:2 + di + H, 2 + dj:2 + dj + W], zp[2 + di:2 + di + H, 2 + dj:2 + dj + W]
+            win = np.s_[2 + di:2 + di + H, 2 + dj:2 + dj + W]
+            vs, zs = vp[win], zp[win]
             x, y = di * r, dj * r
             S += np.stack([vs, vs * x, vs * y, vs * zs, vs * x * x, vs * y * y, vs * x * y,
                            vs * x * zs, vs * y * zs, vs * zs * zs])
+            zmax, zmin = np.maximum(zmax, zmax_p[win]), np.minimum(zmin, zmin_p[win])
     n = np.maximum(S[0], 1.0)
     mx, my, mz = S[1] / n, S[2] / n, S[3] / n
     cxx, cyy, cxy = S[4] / n - mx * mx, S[5] / n - my * my, S[6] / n - mx * my
@@ -310,7 +495,18 @@ def features64(height, valid, res: float):
     enough = S[0] >= 3
     slope = np.where(enough, np.arctan(np.sqrt(a * a + b * b)), 0.0)
     rough = np.where(enough, np.sqrt(np.maximum(czz - (a * cxz + b * cyz), 0.0)), 0.0)
-    return slope, rough
+    step = np.where(np.isfinite(zmin), zmax - zmin, 0.0)
+    return slope, rough, step, enough
+
+
+def lethal64(height, valid, res: float, travers_thresh: float, z_thresh: float = 1.5,
+             crit=(0.6, 0.15, 0.3)):
+    """Lethal cells of `costmap.from_elevation` with the features taken
+    in float64 (`features64`) and the default blend."""
+    slope, rough, step, enough = features64(height, valid, res)
+    trav = 1.0 - np.maximum(np.maximum(slope / crit[0], rough / crit[1]), step / crit[2])
+    trav = np.where(enough & valid, np.clip(trav, 0.0, 1.0), 0.5)
+    return valid & ((trav < travers_thresh) | (height > z_thresh))
 
 
 def _window_count(valid):
@@ -327,14 +523,19 @@ def _window_count(valid):
 def check_stencil(tag, height, valid, res):
     """The kernel against the plain version on the card: step and the
     enough mask exact, the other layers within STENCIL_ATOL, a
-    bit-identical rerun. Returns (max abs error, kernel ms, plain ms)."""
+    bit-identical rerun; then the device, call and plain times and the
+    bound. Returns (record, kernel layers, plain layers)."""
     import torch
 
     from mr_slam_torch.ops import hopper_stencil
 
-    out = hopper_stencil.terrain_features(height, valid, res)
-    again = hopper_stencil.terrain_features(height, valid, res)
-    ref = hopper_stencil.terrain_features_plain(height, valid, res)
+    def call():
+        return hopper_stencil.terrain_features(height, valid, res)
+
+    def plain():
+        return hopper_stencil.terrain_features_plain(height, valid, res)
+
+    out, again, ref = call(), call(), plain()
     torch.cuda.synchronize()
     names = ("slope", "roughness", "step", "traversability")
     errs = {n: (a - b).abs().max().item() for n, a, b in zip(names, out, ref)}
@@ -352,14 +553,17 @@ def check_stencil(tag, height, valid, res):
         raise AssertionError(f"{tag}: kernel vs plain beyond {STENCIL_ATOL}: {bad}")
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"{tag}: two launches are not bit-identical")
-    k_ms = _cuda_ms(lambda: hopper_stencil.terrain_features(height, valid, res), 50)
-    p_ms = _cuda_ms(lambda: hopper_stencil.terrain_features_plain(height, valid, res), 5)
     H, W = height.shape
+    b_ms, b_by = stencil_bound(H, W)
+    t = dict(max_abs_err=max(errs.values()), ms=_cuda_ms(call, 50),
+             device_ms=graph_ms(call, calls=50), plain_ms=_cuda_ms(plain, 5), bound_ms=b_ms,
+             bound_by=b_by, library_ms=None)
     exact = sum(e == 0.0 for e in errs.values())
     log(f"[stencil] {tag}: ok; max abs err " + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
-        + f" ({exact}/4 layers bit-equal); bit-identical rerun; kernel {k_ms:.4f} ms "
-        f"({21 * H * W / (k_ms * 1e-3) / 1e9:.1f} GB/s at 21 B/cell), plain {p_ms:.4f} ms")
-    return max(errs.values()), k_ms, p_ms, out, ref
+        + f" ({exact}/4 layers bit-equal); bit-identical rerun; device "
+        f"{21 * H * W / (t['device_ms'] * 1e-3) / 1e9:.1f} GB/s at 21 B/cell")
+    log(_times_line(f"[stencil] {tag}", t))
+    return t, out, ref
 
 
 def phase_stencil(dev):
@@ -370,13 +574,13 @@ def phase_stencil(dev):
     for size in STENCIL_SIZES:
         for kind in ("random", "terrain"):
             h, v = stencil_inputs(kind, size)
-            err, _, _, out, ref = check_stencil(
+            t, out, ref = check_stencil(
                 f"{kind} {size}x{size}", torch.from_numpy(h).to(dev), torch.from_numpy(v).to(dev),
                 res)
-            worst = max(worst, err)
+            worst = max(worst, t["max_abs_err"])
             # conditioning: the far corner (256^2, 2 cells of halo) against float64
             c = slice(size - 258, size)
-            s64, r64 = features64(h[c, c], v[c, c], 0.2)
+            s64, r64 = features64(h[c, c], v[c, c], 0.2)[:2]
             for name, layers in (("kernel", out), ("plain", ref)):
                 ds = np.abs(layers[0][c, c].cpu().numpy() - s64)[2:, 2:].max()
                 dr = np.abs(layers[1][c, c].cpu().numpy() - r64)[2:, 2:].max()
@@ -561,18 +765,30 @@ def phase_map(res, scans, cfg, dev):
     again = pipeline.build_elevation(res, cfg, size=MAP_SIZE)
     same = all(torch.equal(a, b) for x, y in zip((emap, feats, cm), again) for a, b in zip(x, y))
     log(f"[map] second build_elevation bit-identical: {same}")
-    err, k_ms, p_ms, _, _ = check_stencil(f"build_elevation grid {MAP_SIZE}x{MAP_SIZE}",
-                                          emap.height, emap.valid, emap.resolution)
+    t, _, _ = check_stencil(f"build_elevation grid {MAP_SIZE}x{MAP_SIZE}", emap.height,
+                            emap.valid, emap.resolution)
+    # the card's own map classified with float64 features: the kernel's
+    # lethal cells must agree within 0.1 % (evidence beside the band above,
+    # which also moves with the trajectories)
+    l64 = lethal64(emap.height.cpu().numpy(), emap.valid.cpu().numpy(),
+                   float(emap.resolution), cfg.elevation.travers_thresh)
+    lk = (cost == 100).cpu().numpy()
+    gap64 = counts["lethal"] / max(int(l64.sum()), 1) - 1.0
+    log(f"[map] lethal cells, kernel {counts['lethal']} vs float64 fit of the same map "
+        f"{int(l64.sum())} ({100 * gap64:+.3f} %; {int((lk & ~l64).sum())} lethal only in the "
+        f"kernel's, {int((l64 & ~lk).sum())} only in the float64 one)")
     if launches <= 0:
         raise AssertionError("the stencil kernel was not launched by build_elevation")
     if not (counts["free"] > 100 and counts["lethal"] > 10):
         raise AssertionError(f"costmap lacks free or lethal cells: {counts}")
     if not all(abs(g) <= 0.05 for g in gaps.values()):
         raise AssertionError(f"cell counts beyond 5 % of the reference map: {gaps}")
+    if not abs(gap64) <= 0.001:
+        raise AssertionError(f"kernel lethal cells {100 * gap64:+.3f} % off the float64 fit")
     if not same:
         raise AssertionError("two build_elevation calls differ")
     gem_ticks(res, scans, cfg, dev)
-    return launches, dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+    return launches, t
 
 
 def main() -> int:

@@ -1,8 +1,8 @@
 """ctypes loader for the framework-free native max-clique solver.
 
-The reference's C++ sources under `mr_slam_tpu/native/` depend on no
-framework, but importing `mr_slam_tpu.native` would import jax, so the
-port compiles `mr_slam_tpu/native/maxclique.cpp` itself with g++ into
+The port keeps its own copy of the reference's solver source,
+`mr_slam_torch/csrc/maxclique.cpp` (the same bytes as the reference's
+`native/maxclique.cpp`), and compiles it with g++ into
 `mr_slam_torch/build/` (listed in `.gitignore`) at first use. Unlike the
 reference, which drops to a greedy heuristic when the build fails
 (`pcm.py:122-131`), a failed build raises here.
@@ -18,9 +18,9 @@ from pathlib import Path
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parents[1]
-_SRC = _ROOT / "mr_slam_tpu" / "native" / "maxclique.cpp"
-_BUILD = Path(__file__).resolve().parent / "build"
+_PKG = Path(__file__).resolve().parent
+_SRC = _PKG / "csrc" / "maxclique.cpp"
+_BUILD = _PKG / "build"
 _FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
 

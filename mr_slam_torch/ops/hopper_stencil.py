@@ -9,17 +9,23 @@ the valid cells, the closed-form plane fit -> slope and roughness, the
 window max - min -> step, and the traversability blend.
 
 Kernel: `mr_slam_torch/csrc/terrain_stencil.cu`, CUDA C++ for sm_90a,
-built by `cuda_build` at first use and bound with ctypes. One launch,
-one thread per cell, a shared-memory tile with a 2-cell halo, all sums
-in registers, atan and the blend inside; it reads height and valid once
-and writes the four layers once (21 B per cell). No atomics.
+built by `cuda_build` at first use and bound with ctypes. One launch of
+a persistent grid: each block walks 32 x 32 tiles, with the next tile's
+halo in flight (cp.async) while it computes the current one from shared
+memory, and computes the window moments separably: 5-wide row sums of
+the halo rows, then their u-weighted sums down each column (a thread
+owns a strip of 4 cells); atan and the blend inside. It reads height and
+valid once and writes the four layers once: 21 B per cell, its bound.
+No atomics.
 
 The plain version (`terrain_features_plain`, any odd window) is the
 port of the reference's `elevation.features_xla` and the oracle the
-kernel is held to. Both fit the plane in window-local coordinates, not
-the reference's absolute ones (see `mapping/elevation.py`): integer
-cell offsets (di, dj) about the centre cell, scaled by the resolution
-only in the gradient, so the xy moments are exact (`_closed_form`). At
+kernel is held to; it takes the same separable sums in the same order
+(`window_moments`), so the two agree bit for bit on the card. Both fit
+the plane in window-local coordinates, not the reference's absolute
+ones (see `mapping/elevation.py`): integer cell offsets (di, dj) about
+the centre cell, scaled by the resolution only in the gradient, so the
+xy moments are exact (`_closed_form`). At
 the border, out-of-grid cells add nothing to the moments and are -inf
 for the step's max, as in `features_xla` (the Pallas stripe pads with
 z = 0 cells there instead, and is not followed).
@@ -64,6 +70,66 @@ def _inv(crit: float) -> float:
 # --------------------------------------------------------------------------
 
 
+def window_moments(height: torch.Tensor, valid: torch.Tensor, window: int = WINDOW):
+    """The window sums of every cell, separably and in the kernel's
+    order: row sums over the window's columns (w ascending) of the padded
+    grid's rows, then their u-weighted sums over the window's rows (u
+    ascending); a term whose weight is 0 is not added. Returns (S1, Su,
+    Sw, Suu, Sww, Suw, Sz, Suz, Swz, Szz, zmax, zmin), each (H, W)
+    float32; (u, w) are integer cell offsets, so the first six are exact
+    integers. With z = 0 for invalid cells, v z = z and v z^2 = z^2."""
+    H, W = height.shape
+    p = window // 2
+    v = valid.to(torch.float32)
+    z = torch.where(valid, height, 0.0)
+    pad = (p, p, p, p)
+    vp = F.pad(v, pad)
+    zp = F.pad(z, pad)
+    zzp = zp * zp
+    zmax_p = F.pad(z, pad, value=float("-inf"))
+    zmin_p = F.pad(torch.where(valid, height, float("inf")), pad, value=float("inf"))
+
+    # horizontal: the (H + 2p, W) row sums of every padded row
+    A0 = A1 = A2 = Az = Awz = Azz = torch.zeros_like(vp[:, :W])
+    mx = torch.full_like(A0, float("-inf"))
+    mn = torch.full_like(A0, float("inf"))
+    for w in range(-p, p + 1):
+        cols = slice(p + w, p + w + W)
+        vs, zs = vp[:, cols], zp[:, cols]
+        A0 = A0 + vs
+        if w:
+            A1 = A1 + vs * float(w)
+            A2 = A2 + vs * float(w * w)
+        Az = Az + zs
+        if w:
+            Awz = Awz + zs * float(w)
+        Azz = Azz + zzp[:, cols]
+        mx = torch.maximum(mx, zmax_p[:, cols])
+        mn = torch.minimum(mn, zmin_p[:, cols])
+
+    # vertical: the window's rows, u-weighted
+    S1 = Su = Sw = Suu = Sww = Suw = Sz = Suz = Swz = Szz = torch.zeros_like(z)
+    zmax = torch.full_like(z, float("-inf"))
+    zmin = torch.full_like(z, float("inf"))
+    for u in range(-p, p + 1):
+        rows = slice(p + u, p + u + H)
+        S1 = S1 + A0[rows]
+        if u:
+            ua0 = A0[rows] * float(u)
+            Su = Su + ua0
+            Suu = Suu + ua0 * float(u)
+            Suw = Suw + A1[rows] * float(u)
+            Suz = Suz + Az[rows] * float(u)
+        Sw = Sw + A1[rows]
+        Sww = Sww + A2[rows]
+        Sz = Sz + Az[rows]
+        Swz = Swz + Awz[rows]
+        Szz = Szz + Azz[rows]
+        zmax = torch.maximum(zmax, mx[rows])
+        zmin = torch.minimum(zmin, mn[rows])
+    return S1, Su, Sw, Suu, Sww, Suw, Sz, Suz, Swz, Szz, zmax, zmin
+
+
 def terrain_features_plain(
     height: torch.Tensor,
     valid: torch.Tensor,
@@ -75,43 +141,11 @@ def terrain_features_plain(
 ):
     """(slope, roughness, step, traversability), each (H, W) float32.
 
-    Sums and extrema over shifted slices of the padded grid, in the
-    kernel's order (row offset u outer, column offset w inner), then the
-    closed form below, operation for operation as the kernel does it."""
-    H, W = height.shape
-    p = window // 2
-    dev = height.device
-    res = torch.as_tensor(resolution, dtype=torch.float32, device=dev)
-    v = valid.to(torch.float32)
-    z = torch.where(valid, height, 0.0)
-    pad = (p, p, p, p)
-    vp = F.pad(v, pad)
-    zp = F.pad(z, pad)
-    zmax_p = F.pad(z, pad, value=float("-inf"))
-    zmin_p = F.pad(torch.where(valid, height, float("inf")), pad, value=float("inf"))
-
-    zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
-    S1 = Su = Sw = Suu = Sww = Suw = Sz = Suz = Swz = Szz = zero
-    zmax = torch.full((H, W), float("-inf"), dtype=torch.float32, device=dev)
-    zmin = torch.full((H, W), float("inf"), dtype=torch.float32, device=dev)
-    for u in range(-p, p + 1):
-        for w in range(-p, p + 1):
-            win = (slice(p + u, p + u + H), slice(p + w, p + w + W))
-            vs, zs = vp[win], zp[win]
-            vu, vw, vz = vs * float(u), vs * float(w), vs * zs
-            S1 = S1 + vs
-            Su = Su + vu
-            Sw = Sw + vw
-            Suu = Suu + vu * float(u)
-            Sww = Sww + vw * float(w)
-            Suw = Suw + vu * float(w)
-            Sz = Sz + vz
-            Suz = Suz + vu * zs
-            Swz = Swz + vw * zs
-            Szz = Szz + vz * zs
-            zmax = torch.maximum(zmax, zmax_p[win])
-            zmin = torch.minimum(zmin, zmin_p[win])
-    return _closed_form(S1, Su, Sw, Suu, Sww, Suw, Sz, Suz, Swz, Szz, zmax, zmin, valid, res,
+    The window sums of `window_moments` (separable, in the kernel's
+    order), then the closed form below, operation for operation as the
+    kernel does it."""
+    res = torch.as_tensor(resolution, dtype=torch.float32, device=height.device)
+    return _closed_form(*window_moments(height, valid, window), valid, res,
                         slope_crit, rough_crit, step_crit)
 
 
@@ -172,7 +206,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("terrain_stencil")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.terrain_stencil_launch.argtypes = [p, p, p, i, i, f, f, f, p, p]
+    lib.terrain_stencil_launch.argtypes = [p, p, p, i, i, i, f, f, f, p, p]
     lib.terrain_stencil_launch.restype = i
     return lib
 
@@ -198,9 +232,10 @@ def terrain_features(
     step_crit: float = 0.3,
 ):
     """The 5x5 stencil: height (H, W) float32, valid (H, W) bool,
-    resolution a scalar (a 0-d tensor on the grid's device is read there,
-    without a host sync). Returns (slope, roughness, step,
-    traversability), each (H, W) float32.
+    resolution a scalar (a 0-d float32 tensor on the grid's device is
+    read there as it is, without a copy or a host sync). Returns (slope,
+    roughness, step, traversability), each (H, W) float32, views of one
+    (4, H, W) tensor.
 
     CPU tensors run `terrain_features_plain`; CUDA tensors launch the
     kernel (raising on any fault); other devices raise."""
@@ -214,18 +249,24 @@ def terrain_features(
     if not (height.is_contiguous() and valid.is_contiguous()):
         raise ValueError("terrain_features needs contiguous height and valid")
     dev = height.device
-    res = torch.as_tensor(resolution, dtype=torch.float32, device=dev).reshape(())
+    res = resolution
+    if not (isinstance(res, torch.Tensor) and res.dim() == 0 and res.dtype == torch.float32
+            and res.device == dev):
+        res = torch.as_tensor(resolution, dtype=torch.float32, device=dev).reshape(())
     H, W = height.shape
-    if H > 65535 * 8:
+    if H > 65535 * 32:
         raise ValueError("more rows than the kernel grid holds")
-    lib = _lib()
+    # interior rows take 16-byte height / 4-byte valid loads
+    aligned = int(W % 4 == 0 and height.data_ptr() % 16 == 0 and valid.data_ptr() % 4 == 0)
     out = torch.empty((4, H, W), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.terrain_stencil_launch(
-            height.data_ptr(), valid.data_ptr(), res.data_ptr(), H, W,
-            _inv(slope_crit), _inv(rough_crit), _inv(step_crit), out.data_ptr(), stream,
-        )
+    args = (height.data_ptr(), valid.data_ptr(), res.data_ptr(), H, W, aligned,
+            _inv(slope_crit), _inv(rough_crit), _inv(step_crit), out.data_ptr())
+    if dev.index == torch.cuda.current_device():
+        err = _lib().terrain_stencil_launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = _lib().terrain_stencil_launch(*args,
+                                                torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"terrain_stencil launch failed: CUDA error {err}")
     _launches += 1

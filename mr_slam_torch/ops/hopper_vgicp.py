@@ -10,10 +10,13 @@ here the kernel IS the registration accumulation: every inner GN step of
 `registration._vgicp_direct1` (and so every loop-verify step) runs it.
 
 Kernel: `mr_slam_torch/csrc/vgicp_accum.cu`, CUDA C++ for sm_90a, built
-by `cuda_build` at first use and bound with ctypes. One thread per
-point; a 64-byte packed row load; 29 sums reduced by warp shuffles,
-shared memory, and a second fixed-order pass over per-block partials —
-no float atomics, so reruns are bit-identical. Two modes:
+by `cuda_build` at first use and bound with ctypes. One launch per call:
+each batch item is one thread-block cluster (`launch_shape`), each
+thread walks its points with the voxel-row gather software-pipelined in
+registers, and the 29 sums are reduced by warp shuffles, shared memory
+and, across the cluster, by CTA rank 0 reading the other CTAs' sums
+through distributed shared memory in rank order — no float atomics and
+no second pass, so reruns are bit-identical. Two modes:
 
   hash mode  (`leaf` given) — the `_accum_kernel` / `gn_accumulate_batch`
              contract: floor(x / leaf), lowbias32 % H and the coordinate
@@ -24,19 +27,24 @@ no float atomics, so reruns are bit-identical. Two modes:
              round; the table does not change during registration, so
              `table[slot]` is exactly the cached row.
 
-Both take an optional linearization `center` (B, 3).
+Both take an optional linearization `center` (B, 3) and an optional
+`pose` (R (B, 3, 3), t (B, 3)): with a pose the kernel transforms each
+point itself, x' = ((R00 x + R01 y) + R02 z) + t0 (and likewise for the
+other rows); without one the points are taken as already transformed.
 
-What bounds it: at the main path's shapes (B = 8 verify candidates x
-N = 16384 points; tables of 8192 and 32768 rows) the kernel moves about
-84 B per point per step (point 12, mask 1, slot 4, found 1, row 64), so
-one verify step moves about 11 MB — microseconds at HBM rate. A step is
-bound by launch count first (two launches here, against ~100 elementwise
-launches for the plain version) and by memory second.
+What bounds it: the bytes. At the main path's shapes (B = 8 verify
+candidates x N = 16384 points) a call must read 18 B per point (point
+12, mask 1, slot 4, found 1), 64 B per distinct row the found points
+reference and the pose: a few MB, about a microsecond at HBM rate — less
+than a launch. Hence one launch per call, the pose inside, no partial
+buffer, and a wrapper that does no more host work than it must.
 
 Numerics: the kernel is compiled with --fmad=false and evaluates the
-per-point terms in the same order as the plain twin, so `found`, the
-gates and the inlier count agree exactly; only the order of the sums
-over points differs (tolerances in the tests and `chip_smoke.py`).
+transform and the per-point terms in the same order as the plain twin,
+so the transformed points, `found`, the gates and the inlier count agree
+exactly; only the order of the sums over points differs (tolerances in
+the tests and `chip_smoke.py`). A point that needs no row (masked out,
+or not found) adds zeros in both.
 
 On a CPU tensor the wrapper runs the plain twin; on a CUDA tensor it
 launches the kernel or raises — there is no fallback.
@@ -49,6 +57,7 @@ import functools
 import torch
 
 from ..devconst import const
+from ..geometry.se3 import Pose
 from . import voxel_grid
 
 _TRI = [  # (row, col) order of the 21 upper-triangle integrands
@@ -59,7 +68,7 @@ _TRI = [  # (row, col) order of the 21 upper-triangle integrands
     (4, 4), (4, 5),
     (5, 5),
 ]
-_N_TERMS = 29
+_N_OUT = 44  # H (36, both triangles), b (6), cost, inliers
 
 _launches = 0
 
@@ -161,16 +170,32 @@ def _assemble(acc: torch.Tensor):
     return H, acc[:, 21:27], acc[:, 27], acc[:, 28]
 
 
+def transform_plain(pose: Pose, xyz: torch.Tensor) -> torch.Tensor:
+    """x' = R p + t for xyz (B, N, 3), element by element in the kernel's
+    order, ((R00 x + R01 y) + R02 z) + t0, so that on the card the
+    transformed points are the kernel's bit for bit."""
+    R, t = pose.R, pose.t
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    rows = [
+        ((R[:, k, 0, None] * x + R[:, k, 1, None] * y) + R[:, k, 2, None] * z) + t[:, k, None]
+        for k in range(3)
+    ]
+    return torch.stack(rows, dim=-1)
+
+
 def gn_accumulate_plain(
-    tp, mask, table, leaf=None, slot=None, found=None,
-    eps: float = 1e-6, max_corr2: float = 1.0, center=None,
+    xyz, mask, table, leaf=None, slot=None, found=None,
+    eps: float = 1e-6, max_corr2: float = 1.0, center=None, pose=None,
 ):
-    """The plain PyTorch version of the kernel (both modes): the CPU
-    path, and the oracle the kernel is held to on the card."""
-    _check_args(tp, mask, table, leaf, slot, found, center)
+    """The plain PyTorch version of the kernel (both modes, with or
+    without a pose): the CPU path, and the oracle the kernel is held to
+    on the card."""
+    _check_args(xyz, mask, table, leaf, slot, found, center, pose)
+    tp = xyz if pose is None else transform_plain(pose, xyz)
     if slot is None:
         slot, found = voxel_grid.lookup_slots(voxel_grid.VoxelGrid(table, leaf), tp)
     rows = voxel_grid._gather_rows(table, slot.to(torch.int64)[..., None])[..., 0, :]
+    rows = torch.where((mask & found)[..., None], rows, 0.0)  # the kernel reads no other row
     return _terms_from_rows(tp, mask, rows, found, max_corr2, eps, center)
 
 
@@ -179,10 +204,11 @@ def gn_accumulate_plain(
 # --------------------------------------------------------------------------
 
 
-def _check_args(tp, mask, table, leaf, slot, found, center):
-    if tp.dim() != 3 or tp.shape[-1] != 3 or tp.dtype != torch.float32:
-        raise ValueError(f"tp must be (B, N, 3) float32, got {tuple(tp.shape)} {tp.dtype}")
-    B, N = tp.shape[:2]
+def _check_args(xyz, mask, table, leaf, slot, found, center, pose):
+    """Shapes, types and devices; reads nothing back from the device."""
+    if xyz.dim() != 3 or xyz.shape[-1] != 3 or xyz.dtype != torch.float32:
+        raise ValueError(f"xyz must be (B, N, 3) float32, got {tuple(xyz.shape)} {xyz.dtype}")
+    B, N = xyz.shape[:2]
     if mask.shape != (B, N) or mask.dtype != torch.bool:
         raise ValueError(f"mask must be ({B}, {N}) bool, got {tuple(mask.shape)} {mask.dtype}")
     if table.dim() != 3 or table.shape[0] != B or table.shape[-1] != 16 \
@@ -196,9 +222,15 @@ def _check_args(tp, mask, table, leaf, slot, found, center):
             raise ValueError("slot mode needs slot (B, N) and found (B, N) bool")
     if center is not None and (center.shape != (B, 3) or center.dtype != torch.float32):
         raise ValueError(f"center must be ({B}, 3) float32")
-    tensors = [tp, mask, table, slot, found, center]
-    if any(t is not None and t.device != tp.device for t in tensors):
+    if pose is not None and (pose.R.shape != (B, 3, 3) or pose.t.shape != (B, 3)
+                             or pose.R.dtype != torch.float32 or pose.t.dtype != torch.float32):
+        raise ValueError(f"pose must hold R ({B}, 3, 3) and t ({B}, 3) float32")
+    tensors = [xyz, mask, table, slot, found, center]
+    if pose is not None:
+        tensors += [pose.R, pose.t]
+    if any(t is not None and t.device != xyz.device for t in tensors):
         raise ValueError("all tensors must be on one device")
+    return tensors
 
 
 @functools.cache
@@ -207,21 +239,83 @@ def _lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("vgicp_accum")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vgicp_accum_blocks.argtypes = [i]
-    lib.vgicp_accum_blocks.restype = i
+    lib.vgicp_accum_max_clusters.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.vgicp_accum_max_clusters.restype = i
     lib.vgicp_accum_launch.argtypes = [
-        p, p, p, p, p, p, i, i, i, f, f, f, i, p, p, p, p, p, p,
+        p, p, p, p, p, p, p, p, i, i, i, f, f, f, i, i, i, p, p,
     ]
     lib.vgicp_accum_launch.restype = i
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_shape(B: int, N: int, index: int = 0) -> tuple[int, int]:
+    """(CTAs per batch item, threads per CTA): the largest power-of-two
+    cluster up to 16 whose grid fits one CTA per SM, and no more CTAs
+    than 256-thread blocks the points fill; 512 threads where each would
+    still walk at least 4 points, else 256 (`kernel_times.py --clusters`
+    measured both shapes of the main path and the bench). A function of
+    the shapes only, so the summation order, and a rerun's bits, never
+    depend on scheduling."""
+    c = 16
+    while c > 1 and (c * B > _sm_count(index) or (c // 2) * 256 >= N):
+        c //= 2
+    return c, (512 if N >= 4 * 512 * c else 256)
+
+
+@functools.cache
+def _check_clusters(cluster: int, threads: int, slot_mode: bool, has_center: bool,
+                    has_pose: bool, index: int) -> None:
+    """Raises unless the card can hold at least one cluster of this
+    variant (there is no fallback to a smaller one)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _lib().vgicp_accum_max_clusters(cluster, threads, int(slot_mode), int(has_center),
+                                              int(has_pose), ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"vgicp_accum occupancy query failed: CUDA error {err}")
+    if n.value == 0:
+        raise RuntimeError(f"vgicp_accum: no cluster of {cluster} CTAs fits on the card")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _launch(xyz, mask, table, leaf, slot, found, eps, max_corr2, center, pose, cluster,
+            threads):
+    """One kernel launch with `cluster` CTAs of `threads` threads per
+    batch item; returns the (B, 44) result. Raises on a launch the
+    runtime refuses."""
+    global _launches
+    B, N = xyz.shape[:2]
+    index = xyz.device.index
+    slot_mode = slot is not None
+    _check_clusters(cluster, threads, slot_mode, center is not None, pose is not None, index)
+    out = torch.empty((B, _N_OUT), dtype=torch.float32, device=xyz.device)
+    args = (
+        _ptr(xyz), _ptr(mask), _ptr(table), _ptr(slot), _ptr(found), _ptr(center),
+        None if pose is None else pose.R.data_ptr(), None if pose is None else pose.t.data_ptr(),
+        B, N, table.shape[1], float(leaf if leaf is not None else 0.0), float(eps),
+        float(max_corr2), int(slot_mode), cluster, threads, out.data_ptr(),
+    )
+    if index == torch.cuda.current_device():
+        err = _lib().vgicp_accum_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _lib().vgicp_accum_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"vgicp_accum launch failed: CUDA error {err}")
+    _launches += 1
+    return out
+
+
 def gn_accumulate(
-    tp: torch.Tensor,
+    xyz: torch.Tensor,
     mask: torch.Tensor,
     table: torch.Tensor,
     leaf: float | None = None,
@@ -230,49 +324,35 @@ def gn_accumulate(
     eps: float = 1e-6,
     max_corr2: float = 1.0,
     center: torch.Tensor | None = None,
+    pose: Pose | None = None,
 ):
-    """Batched VGICP accumulation: tp (B, N, 3) f32 transformed points,
-    mask (B, N) bool, table (B, H, 16) packed rows; hash mode with
-    `leaf`, slot mode with `slot` (B, N) int32 and `found` (B, N) bool;
-    optional `center` (B, 3). `max_corr2` is the squared gate radius.
-    Returns (H (B, 6, 6), b (B, 6), cost (B,), inliers (B,)).
+    """Batched VGICP accumulation: xyz (B, N, 3) f32 points, transformed
+    by `pose` (R (B, 3, 3), t (B, 3)) when one is given and taken as
+    already transformed otherwise; mask (B, N) bool; table (B, H, 16)
+    packed rows; hash mode with `leaf`, slot mode with `slot` (B, N)
+    int32 and `found` (B, N) bool; optional `center` (B, 3).
+    `max_corr2` is the squared gate radius. Returns (H (B, 6, 6), b
+    (B, 6), cost (B,), inliers (B,)), views of one (B, 44) tensor.
 
     CPU tensors run `gn_accumulate_plain`; CUDA tensors launch the
-    kernel (raising on any fault); other devices raise."""
-    global _launches
-    if tp.device.type == "cpu":
-        return gn_accumulate_plain(tp, mask, table, leaf, slot, found, eps, max_corr2, center)
-    if tp.device.type != "cuda":
-        raise ValueError(f"gn_accumulate runs on cpu or cuda, not {tp.device}")
-    _check_args(tp, mask, table, leaf, slot, found, center)
+    kernel once (raising on any fault; no host sync, so the call can be
+    captured in a CUDA graph); other devices raise."""
+    if xyz.device.type == "cpu":
+        return gn_accumulate_plain(xyz, mask, table, leaf, slot, found, eps, max_corr2, center,
+                                   pose)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"gn_accumulate runs on cpu or cuda, not {xyz.device}")
+    tensors = _check_args(xyz, mask, table, leaf, slot, found, center, pose)
     if slot is not None and slot.dtype != torch.int32:
         raise ValueError(f"slot must be int32, got {slot.dtype}")
-    tensors = [tp, mask, table, slot, found, center]
-    if any(t is not None and not t.is_contiguous() for t in tensors):
+    if not all(t is None or t.is_contiguous() for t in tensors):
         raise ValueError("gn_accumulate needs contiguous tensors")
     if table.data_ptr() % 16:
         raise ValueError("table rows must be 16-byte aligned (float4 loads)")
-    B, N = tp.shape[:2]
-    H_rows = table.shape[1]
+    B, N = xyz.shape[:2]
     if B > 65535:
         raise ValueError("batch above 65535 exceeds the kernel grid")
-    lib = _lib()
-    dev = tp.device
-    n_blocks = lib.vgicp_accum_blocks(N)
-    partial = torch.empty((B, n_blocks, _N_TERMS), dtype=torch.float32, device=dev)
-    H = torch.empty((B, 6, 6), dtype=torch.float32, device=dev)
-    b = torch.empty((B, 6), dtype=torch.float32, device=dev)
-    cost = torch.empty((B,), dtype=torch.float32, device=dev)
-    inl = torch.empty((B,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vgicp_accum_launch(
-            _ptr(tp), _ptr(mask), _ptr(table), _ptr(slot), _ptr(found), _ptr(center),
-            B, N, H_rows, float(leaf if leaf is not None else 0.0), float(eps),
-            float(max_corr2), int(slot is not None),
-            _ptr(partial), _ptr(H), _ptr(b), _ptr(cost), _ptr(inl), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"vgicp_accum launch failed: CUDA error {err}")
-    _launches += 1
-    return H, b, cost, inl
+    out = _launch(xyz, mask, table, leaf, slot, found, eps, max_corr2, center, pose,
+                  *launch_shape(B, N, xyz.device.index))
+    return (out.as_strided((B, 6, 6), (_N_OUT, 6, 1)), out.as_strided((B, 6), (_N_OUT, 1), 36),
+            out.as_strided((B,), (_N_OUT,), 42), out.as_strided((B,), (_N_OUT,), 43))

@@ -5,8 +5,9 @@ Correspondences come from `VoxelGrid` gathers; each Gauss-Newton step
 accumulates a 6x6 system, solves it with the unrolled LDL^T and retracts
 on SE(3). `lax.scan` loops become Python loops (the iteration counts are
 static). The VGICP accumulation is the Hopper kernel
-(`ops/hopper_vgicp.py`): `_gn_terms_from_rows` dispatches to it, so on a
-CUDA tensor every inner step of `_vgicp_direct1` launches it.
+(`ops/hopper_vgicp.py`): `_gn_terms_from_rows` (points already
+transformed) dispatches to it, and every inner step of `_vgicp_direct1`
+launches it once on a CUDA tensor with the pose applied inside.
 
 Ported: `RegistrationResult`, `_gn_update`, `_uncenter`, `_select_best`,
 `_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B),
@@ -166,9 +167,10 @@ def _vgicp_direct1(
         slot, found = voxel_grid.lookup_slots(target, se3.apply(pose, sxyz))
         c = se3.apply(pose, centroid[:, None, :])[:, 0].contiguous()
         for _ in range(inner_n):
-            tp = se3.apply(pose, sxyz).contiguous()
-            H, b, cst, n = _gn_terms_from_rows(
-                tp, smask, target.packed, slot, found, max_corr2, center=c
+            # the kernel applies the pose itself: one launch per step
+            H, b, cst, n = hopper_vgicp.gn_accumulate(
+                sxyz, smask, target.packed, slot=slot, found=found, max_corr2=max_corr2,
+                center=c, pose=Pose(pose.R.contiguous(), pose.t.contiguous()),
             )
             dx_c = _gn_update(H + 1e-6 * _eye6(H), b, damping)
             pose = se3.compose(se3.exp(_uncenter(dx_c, c)), pose)

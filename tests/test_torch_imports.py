@@ -38,6 +38,36 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 20  # every slice module was walked
 
 
+def test_port_reads_no_file_of_the_reference():
+    """The native solver is built from the port's own source, and no
+    string of the port outside a docstring names the reference package
+    (a path under it, or the package as a path component)."""
+    import ast
+
+    from mr_slam_torch import native
+
+    pkg = ROOT / "mr_slam_torch"
+    assert native._SRC.resolve().is_relative_to(pkg), native._SRC
+    assert native._SRC.read_bytes() == (ROOT / "mr_slam_tpu" / "native" / "maxclique.cpp").read_bytes()
+    bad = []
+    files = sorted(pkg.rglob("*.py"))
+    for path in files:
+        tree = ast.parse(path.read_text())
+        docs = set()
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and body and isinstance(body[0], ast.Expr) \
+                    and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docs and "mr_slam_tpu" in node.value:
+                bad.append(f"{path.relative_to(ROOT)}:{node.lineno}: {node.value!r}")
+    assert len(files) >= 20
+    assert not bad, bad
+
+
 CONFIGS = [
     "OdometryCfg", "KeyframeCfg", "LoopCfg", "PGOCfg", "ElevationCfg",
     "SchedulerCfg", "RobotOverlay", "SlamConfig",

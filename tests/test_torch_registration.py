@@ -71,6 +71,30 @@ def test_vgicp_direct1_matches_reference(vgicp_batch, schedule):
         np.testing.assert_allclose(res.pose.t[k].numpy(), offsets(k).t.numpy(), atol=0.05)
 
 
+@pytest.mark.parametrize("centered", [False, True])
+def test_gn_terms_from_rows_matches_reference(vgicp_batch, centered):
+    """The port's `_gn_terms_from_rows` (points already transformed)
+    against the reference's on the same cached rows, with the
+    tolerances of `tests/test_pallas_vgicp.py`."""
+    import jax.numpy as jnp
+
+    src, grid, _ = vgicp_batch
+    tp = tse3.apply(tse3.stack([offsets(k) for k in range(B)]), src.xyz)
+    slot, found = tvg.lookup_slots(grid, tp)
+    center = tp.mean(dim=1) if centered else None
+    H, b, cost, n = treg._gn_terms_from_rows(tp, src.mask, grid.packed, slot, found, 1.0,
+                                             center=center)
+    for k in range(B):
+        j = jreg._gn_terms_from_rows(
+            to_jax(tp[k]), to_jax(src.mask[k]), to_jax(grid.packed[k][slot[k].long()]),
+            to_jax(found[k]), jnp.float32(1.0), center=None if center is None else to_jax(center[k]),
+        )
+        assert float(n[k]) == float(j[3]) and float(n[k]) > 100
+        np.testing.assert_allclose(H[k].numpy(), np.asarray(j[0]), rtol=2e-3, atol=1e-3)
+        np.testing.assert_allclose(b[k].numpy(), np.asarray(j[1]), rtol=1e-2, atol=0.1)
+        np.testing.assert_allclose(float(cost[k]), float(j[2]), rtol=1e-3)
+
+
 def test_vgicp_rejects_unported_paths(vgicp_batch):
     src, grid, init = vgicp_batch
     with pytest.raises(NotImplementedError):

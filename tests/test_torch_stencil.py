@@ -213,6 +213,23 @@ def test_window3_matches_reference():
         assert (gap <= np.abs(ref[layer] - o[layer]) + TOL64[layer]).all(), layer
 
 
+@pytest.mark.parametrize("frac_valid", [0.05, 0.5, 0.8])
+def test_separable_xy_moments_are_exact_integers(frac_valid):
+    """The separable sums keep the six xy moments (S1, Su, Sw, Suu, Sww,
+    Suw) exact: equal to their integer values, border included."""
+    h, v = case(37, 53, seed=4, frac_valid=frac_valid)
+    m = hopper_stencil.window_moments(torch.from_numpy(h), torch.from_numpy(v))
+    vp = np.pad(v.astype(np.int64), 2)
+    want = {k: np.zeros(v.shape, np.int64) for k in ("1", "u", "w", "uu", "ww", "uw")}
+    for u in range(-2, 3):
+        for w in range(-2, 3):
+            vs = vp[2 + u:2 + u + v.shape[0], 2 + w:2 + w + v.shape[1]]
+            for k, c in (("1", 1), ("u", u), ("w", w), ("uu", u * u), ("ww", w * w), ("uw", u * w)):
+                want[k] += c * vs
+    for got, k in zip(m[:6], ("1", "u", "w", "uu", "ww", "uw")):
+        np.testing.assert_array_equal(got.numpy(), want[k].astype(np.float32), err_msg=k)
+
+
 def test_dispatch_on_cpu_runs_plain_version():
     h, v = case(30, 40, seed=2)
     m = tel.ElevationMap(torch.from_numpy(h), torch.ones(h.shape), torch.from_numpy(v),
@@ -262,7 +279,8 @@ def kernel_and_plain(h, v, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(256, 300), (2048, 2048), (1, 1), (3, 4), (7, 33), (100, 37)])
+@pytest.mark.parametrize("shape", [(256, 300), (2048, 2048), (1, 1), (3, 4), (7, 33), (100, 37),
+                                   (40, 1), (33, 68), (65, 132)])
 @pytest.mark.parametrize("kind", ["random", "terrain"])
 def test_kernel_matches_plain_on_card(cuda_device, shape, kind):
     h, v = case(*shape) if kind == "random" else terrain(*shape)
@@ -290,3 +308,27 @@ def test_features_dispatch_launches_kernel_on_card(cuda_device):
     o = oracle64(h, v)
     np.testing.assert_allclose(f.slope.cpu().numpy(), o["slope"], atol=TOL64["slope"])
     assert g.step.shape == (64, 96)
+
+
+@pytest.mark.gpu
+def test_one_launch_per_call_and_graph_capture_on_card(cuda_device):
+    """One launch per call, and the call captured in a CUDA graph
+    replays to the eager result bit for bit."""
+    h, v = terrain(96, 160)
+    ht, vt = torch.from_numpy(h).to(cuda_device), torch.from_numpy(v).to(cuda_device)
+    res = torch.tensor(RES, device=cuda_device)
+    eager = hopper_stencil.terrain_features(ht, vt, res)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hopper_stencil.terrain_features(ht, vt, res)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    hopper_stencil.reset_launch_count()
+    with torch.cuda.graph(graph):
+        captured = hopper_stencil.terrain_features(ht, vt, res)
+    assert hopper_stencil.launch_count() == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, captured):
+        assert torch.equal(a, b)
