@@ -55,6 +55,35 @@ Phases (each prints its own lines; any failure exits non-zero):
                last grid, which must be centred on the robot; stage
                times.
 
+  7. online  — the streaming entry point on the card: phase 5's scans
+               through `datasets.replay.replay` as one interleaved stream
+               (robot r's frame i stamped 0.1 i + 0.03 r) into
+               `runtime.online.OnlineSlam(cfg, enable_gem=True,
+               device=cuda)` with the reference launch's rates (a loop
+               stage every 3 keyframes, TF at 10 Hz, the merged map at
+               3 Hz). Checks: the VGICP kernel launched, >= 1
+               inter-robot loop, per-robot keyframe ATE < 1 m and within
+               1.25 x the JAX reference session + 0.05 m
+               (JAX_REF_ONLINE_ATE), map -> robot_r/odom in the TF buffer
+               for every robot, a merged map with points, one flushed GEM
+               submap per keyframe. Then the session's map product
+               (`global_elevation(size=600)`, features through the
+               stencil kernel, costmap with free and lethal cells, the
+               kernel against its plain version on that grid); a resume
+               (`checkpoint.save_session` at the stream's midpoint,
+               `load_session(device=cuda)` into a fresh session, the rest
+               of the stream) bit-identical to the uninterrupted session
+               in optimized poses, keyframe counts and accepted loops;
+               and the real-format chain at production scan size
+               (`sequence_artifact.generate`: 2 robots x 24 frames at
+               64x1024 rays, 0.3 laps, under `mr_slam_torch/build/`;
+               `run_session(device=cuda)`: 48 frames, ATE < 0.5 m).
+               Prints add_frame frames/s per robot, the online span
+               totals, loop stages, peak device memory, the host syncs
+               per frame and their sites (`count_syncs`), the
+               checkpoint's size and save / load walls, and the
+               real-format walls.
+
 Every kernel check of phases 3, 4 and 6 prints, for its shape, the
 device time (`graph_ms`: calls captured in a CUDA graph, replays timed
 with CUDA events), the eager call time (`_cuda_ms`), the plain
@@ -63,7 +92,8 @@ operations over the f32 peak, whichever is larger) with the device
 time's share of it.
 
 The last three lines are the kernels' JSON record (the launch counts of
-the main path's runs of phases 5 and 6; the times, error and bound of
+the main path's runs of phases 5 and 6 plus the online session's of
+phase 7; the times, error and bound of
 each kernel at the main path's shape: VGICP's fine/slot/center/pose
 call at B = 8, the stencil at the 600^2 map grid), the card's name and
 power limit as `nvidia-smi` prints them, and `{"ok": true, "device":
@@ -71,6 +101,7 @@ power limit as `nvidia-smi` prints them, and `{"ok": true, "device":
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -96,6 +127,20 @@ JAX_REF_ATE = (0.04725401848554611, 0.03672850877046585, 0.05712500587105751)
 # up to 1.57 rad on that map, a defect the port does not copy.
 # Re-record the counts whenever the scenario changes.
 JAX_REF_MAP = dict(valid=60664, free=56535, lethal=4129)
+# Keyframe ATE (m) of `mr_slam_tpu.runtime.online.OnlineSlam` on the CPU
+# over the identical stream and config of phase 7 (`online_frames`,
+# `online_config`; GEM on), per robot: the correctness reference of
+# phase 7, recorded with `tests/torch_parity.online_reference()`. That
+# session accepts JAX_REF_ONLINE_LOOPS inter-robot loops. Re-record both
+# whenever the scenario or the session's cadences change.
+JAX_REF_ONLINE_ATE = (0.13014179468154907, 0.08666271716356277, 0.18259571492671967)
+JAX_REF_ONLINE_LOOPS = 24
+# the reference launch's rates (`global_manager.launch`): TF at 10 Hz,
+# the merged map at 3 Hz; a loop stage every 3 keyframes (the default)
+ONLINE_TF_PERIOD_S, ONLINE_COMPOSE_PERIOD_S = 0.1, 1.0 / 3.0
+# the real-format chain of phase 7 (the bench's `realformat` stage at
+# 64x1024 rays, ~1.8 m of arc per frame)
+REAL_ROBOTS, REAL_FRAMES, REAL_RINGS, REAL_AZIMUTH, REAL_LAPS = 2, 24, 64, 1024, 0.3
 MAP_SIZE = 600
 STENCIL_SIZES = (2048, 4096)
 # kernel vs plain on the card: the same float32 operations in the same
@@ -614,10 +659,10 @@ def phase_main(dev):
     from mr_slam_torch.runtime import pipeline
 
     t0 = time.perf_counter()
-    trajs, scans, cfg = scenario()
+    trajs, host_scans, cfg = scenario()
     log(f"[main] scans raycast on the host in {time.perf_counter() - t0:.1f} s: "
         f"{N_ROBOTS} robots x {N_FRAMES} frames x {RINGS}x{AZIMUTH} rays")
-    scans = [pcl.PointCloud(s.xyz.to(dev), s.mask.to(dev)) for s in scans]
+    scans = [pcl.PointCloud(s.xyz.to(dev), s.mask.to(dev)) for s in host_scans]
     origins = [se3.index(t, 0).to(dev) for t in trajs]
 
     def run():
@@ -670,7 +715,7 @@ def phase_main(dev):
             raise AssertionError(f"robot {r} keyframe ATE {a:.3f} m >= 1.0 m")
         if JAX_REF_ATE is not None and not a <= 1.25 * JAX_REF_ATE[r] + 0.05:
             raise AssertionError(f"robot {r} ATE {a:.3f} m beyond 1.25 x JAX {JAX_REF_ATE[r]} + 0.05")
-    return launches, res, scans, cfg
+    return launches, res, scans, cfg, trajs, host_scans
 
 
 def _synced(fn, timers, name):
@@ -791,6 +836,282 @@ def phase_map(res, scans, cfg, dev):
     return launches, t
 
 
+# --------------------------------------------------------------------------
+# phase 7: the online session
+# --------------------------------------------------------------------------
+
+
+def online_config(cfg):
+    """Phase 5's config with the reference launch's cadences."""
+    from mr_slam_torch.runtime.config import SchedulerCfg
+
+    return cfg.replace(scheduler=SchedulerCfg(tf_period_s=ONLINE_TF_PERIOD_S,
+                                              compose_period_s=ONLINE_COMPOSE_PERIOD_S))
+
+
+def online_frames(trajs, scans):
+    """Phase 5's host scans as one interleaved stream of replay frames:
+    robot r's frame i stamped 0.1 i + 0.03 r (as `synthetic_bag` stamps
+    them), its first frame carrying its origin."""
+    from mr_slam_torch.datasets.replay import Frame
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    frames = [
+        Frame(stamp=0.1 * i + 0.03 * r, robot=r,
+              scan=pcl.PointCloud(scans[r].xyz[i], scans[r].mask[i]),
+              origin=se3.index(trajs[r], 0) if i == 0 else None)
+        for r in range(len(trajs)) for i in range(scans[r].xyz.shape[0])
+    ]
+    frames.sort(key=lambda f: f.stamp)
+    return frames
+
+
+def online_ate(store, opt_t, node_ids, traj, r):
+    """Keyframe ATE (m) of robot r: keyframe k was frame
+    round((stamp - 0.03 r) / 0.1); `opt_t` (N, 3) host optimized
+    positions, `node_ids` the keyframes' nodes, `store` the robot's
+    (stamps, count) on the host."""
+    stamps, K = store
+    frames = np.rint((np.asarray(stamps[:K], np.float64) - 0.03 * r) / 0.1).astype(np.int64)
+    true = np.asarray(traj.t)[frames]
+    est = np.asarray(opt_t)[np.asarray(node_ids[:K])]
+    return float(np.sqrt(np.mean(np.sum((est - true) ** 2, axis=-1))))
+
+
+def _same_result(a, b) -> bool:
+    """Optimized poses, keyframe counts and accepted loops bit-identical."""
+    import torch
+
+    if not (torch.equal(a.opt_poses.R, b.opt_poses.R) and torch.equal(a.opt_poses.t, b.opt_poses.t)):
+        return False
+    if [int(x.store.count) for x in a.robots] != [int(x.store.count) for x in b.robots]:
+        return False
+    if not np.array_equal(a.node_of, b.node_of) or len(a.loops) != len(b.loops):
+        return False
+    keys = ("robot_a", "kf_a", "robot_b", "kf_b")
+    return all(
+        all(la[k] == lb[k] for k in keys) and torch.equal(la["rel"].R, lb["rel"].R)
+        and torch.equal(la["rel"].t, lb["rel"].t)
+        for la, lb in zip(a.loops, b.loops)
+    )
+
+
+def count_syncs(fn):
+    """Run fn() with PyTorch's CUDA sync debug mode on. Returns a Counter
+    of the synchronizing calls it reported, by the Python 'file:line'
+    that made them."""
+    import os
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def count_frame_syncs(sess, frames):
+    """Feed `frames` to `sess` one add_frame at a time, counting the
+    host syncs of each (`count_syncs`). Returns [(sites, busy)] per
+    frame, `busy` when the frame added a keyframe or fired a loop stage,
+    TF or the merged map."""
+    from mr_slam_torch.runtime import observability as obs
+
+    def state():
+        return (sum(sess.kf_counts.values()), len(sess._pending_kf),
+                obs.metrics.counters.get("tf.publishes", 0),
+                obs.metrics.counters.get("compose.runs", 0))
+
+    out = []
+    for f in frames:
+        if f.robot not in sess.robots:
+            sess.register_robot(f.robot, f.origin)
+        before = state()
+        sites = count_syncs(lambda: sess.add_frame(f.robot, f.scan, stamp=f.stamp))
+        out.append((sites, before != state()))
+    return out
+
+
+def phase_online(dev, trajs, host_scans, cfg):
+    """The online session on the card (see the module docstring).
+    Returns (VGICP launches of the stream, stencil launches of the
+    session's map, the stencil's max abs error on that map)."""
+    import os
+
+    import torch
+
+    from mr_slam_torch.datasets import replay, sequence_artifact
+    from mr_slam_torch.mapping import costmap, elevation
+    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
+    from mr_slam_torch.runtime import checkpoint, online
+    from mr_slam_torch.runtime import observability as obs
+
+    ocfg = online_config(cfg)
+    frames = online_frames(trajs, host_scans)
+    n_robots = len(trajs)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mr_slam_torch", "build",
+                           "online")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # ---- 1. the session stream --------------------------------------
+    sess = online.OnlineSlam(ocfg, enable_gem=True, device=dev)
+    add_s = dict.fromkeys(range(n_robots), 0.0)
+    stages = [0]
+    add_frame, loop_stage = sess.add_frame, sess.run_loop_stage
+
+    def timed_add(robot, scan, **kw):
+        t = time.perf_counter()
+        pose = add_frame(robot, scan, **kw)
+        add_s[robot] += time.perf_counter() - t
+        return pose
+
+    def counted_stage():
+        stages[0] += 1
+        return loop_stage()
+
+    sess.add_frame, sess.run_loop_stage = timed_add, counted_stage
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    obs.tracer.stats.clear()
+    obs.metrics.counters.clear()
+    hopper_vgicp.reset_launch_count()
+    hopper_stencil.reset_launch_count()
+    t = time.perf_counter()
+    n_fed = replay.replay(frames, sess)
+    res = sess.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    vgicp_launches = hopper_vgicp.launch_count()
+    stream_stencil = hopper_stencil.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    spans = obs.tracer.report()
+    counters = dict(obs.metrics.counters)
+    log(f"[online] replay of {n_fed} frames + result() wall {wall:.3f} s; peak device memory "
+        f"{peak / 2**20:.1f} MiB; vgicp_accum launches {vgicp_launches}, terrain_stencil "
+        f"{stream_stencil}; loop stages {stages[0]} ({spans.get('online.solve', {}).get('count', 0)} "
+        f"solved)")
+    for r in range(n_robots):
+        n_r = sum(f.robot == r for f in frames)
+        log(f"[online] robot {r}: add_frame {add_s[r]:.3f} s = {n_r / add_s[r]:.1f} frames/s, "
+            f"{sess.kf_counts[r]} keyframes")
+    log("[online] spans (total s / count): " + ", ".join(
+        f"{k} {spans[k]['total_s']:.3f} / {spans[k]['count']}"
+        for k in ("online.frontend", "online.gem", "loop.retrieve", "loop.verify", "online.pcm",
+                  "online.solve", "online.compose")
+        if k in spans))
+    inter = [l for l in res.loops if l["robot_a"] != l["robot_b"]]
+    log(f"[online] loops: candidates {counters.get('loops.candidates', 0):.0f}, verified "
+        f"{counters.get('loops.verified', 0):.0f}, accepted after PCM {len(res.loops)} "
+        f"({len(inter)} inter-robot), PCM rejected {counters.get('online.pcm_rejected', 0):.0f}; "
+        f"TF publishes {counters.get('tf.publishes', 0):.0f}, compose runs "
+        f"{counters.get('compose.runs', 0):.0f}")
+
+    # ---- 2. the session's checks --------------------------------------
+    opt_t = res.opt_poses.t.cpu().numpy()
+    ates = [online_ate((res.robots[r].store.stamps.cpu().numpy(), int(res.robots[r].store.count)),
+                       opt_t, res.node_of[r], trajs[r], r) for r in range(n_robots)]
+    log(f"[online] keyframe ATE per robot (m): {[round(a, 4) for a in ates]}; JAX reference "
+        f"session {JAX_REF_ONLINE_ATE} ({JAX_REF_ONLINE_LOOPS} inter-robot loops)")
+    if vgicp_launches <= 0:
+        raise AssertionError("the VGICP kernel was not launched during the online stream")
+    if not inter:
+        raise AssertionError(f"the online session accepted no inter-robot loop (all: {len(res.loops)})")
+    for r, a in enumerate(ates):
+        if not a < 1.0:
+            raise AssertionError(f"online robot {r} keyframe ATE {a:.3f} m >= 1.0 m")
+        if not a <= 1.25 * JAX_REF_ONLINE_ATE[r] + 0.05:
+            raise AssertionError(f"online robot {r} ATE {a:.3f} m beyond 1.25 x JAX "
+                                 f"{JAX_REF_ONLINE_ATE[r]} + 0.05")
+    missing = [r for r in range(n_robots) if not sess.tf.can_transform("map", f"robot_{r}/odom")]
+    if missing:
+        raise AssertionError(f"no map -> robot_r/odom in the TF buffer for robots {missing}")
+    if sess.merged_map is None or not bool(sess.merged_map.mask.any()):
+        raise AssertionError("the composed merged map has no points")
+    flushed = [len(sess.robots[r]["gem_flushed"]) for r in range(n_robots)]
+    if flushed != [sess.kf_counts[r] for r in range(n_robots)]:
+        raise AssertionError(f"GEM flushed {flushed} submaps for keyframes {sess.kf_counts}")
+    log(f"[online] TF frames {sess.tf.frames()}; merged map {int(sess.merged_map.mask.sum())} "
+        f"points; GEM submaps per robot {flushed}")
+
+    # ---- 3. the map product ------------------------------------------
+    hopper_stencil.reset_launch_count()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    emap = sess.global_elevation(size=MAP_SIZE)
+    torch.cuda.synchronize()
+    t_compose = time.perf_counter() - t
+    feats = elevation.features(emap)
+    cm = costmap.from_elevation(emap, feats, travers_thresh=cfg.elevation.travers_thresh)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t
+    map_stencil = hopper_stencil.launch_count()
+    cost = cm.cost
+    counts = dict(valid=int(emap.valid.sum()), free=int((cost == 0).sum()),
+                  lethal=int((cost == 100).sum()))
+    log(f"[online] global_elevation({MAP_SIZE}) {t_compose:.3f} s, + features + costmap "
+        f"{t_map:.3f} s; terrain_stencil launches {map_stencil}; cells {counts}")
+    if map_stencil <= 0:
+        raise AssertionError("the stencil kernel was not launched on the session's map")
+    if not (counts["free"] > 100 and counts["lethal"] > 10):
+        raise AssertionError(f"the session's costmap lacks free or lethal cells: {counts}")
+    st, _, _ = check_stencil(f"online global_elevation grid {MAP_SIZE}x{MAP_SIZE}", emap.height,
+                             emap.valid, emap.resolution)
+
+    # ---- 4. resume (its first half also counts the host syncs) ----------
+    half = len(frames) // 2
+    first = online.OnlineSlam(ocfg, enable_gem=True, device=dev)
+    syncs = count_frame_syncs(first, frames[:half])
+    plain = sorted(sum(s.values()) for s, busy in syncs if not busy)
+    every = sorted(sum(s.values()) for s, _ in syncs)
+    log(f"[online] host syncs per add_frame (torch.cuda sync debug mode, first {half} frames): "
+        f"{plain[:1] + plain[-1:]} (min, max) on the {len(plain)} frames that add no keyframe "
+        f"and fire no cadence; {every[:1] + every[-1:]} over all frames, {sum(every)} in all")
+    sites = sum((s for s, busy in syncs if not busy), collections.Counter())
+    log(f"[online] their sites on those frames (calls): {dict(sites.most_common())}")
+    path = os.path.join(out_dir, "session.npz")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    checkpoint.save_session(first, path)
+    t_save = time.perf_counter() - t
+    t = time.perf_counter()
+    resumed = checkpoint.load_session(path, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t
+    replay.replay(frames[half:], resumed)
+    same = _same_result(resumed.result(), res)
+    log(f"[online] checkpoint at frame {half} of {len(frames)}: {os.path.getsize(path) / 2**20:.2f} "
+        f"MiB, save_session {t_save:.3f} s, load_session {t_load:.3f} s; resumed session "
+        f"bit-identical to the uninterrupted one: {same}")
+    if not same:
+        raise AssertionError("the resumed session differs from the uninterrupted one")
+
+    # ---- 5. the real-format chain ----------------------------------------
+    root = os.path.join(out_dir, "realformat")
+    t = time.perf_counter()
+    sequence_artifact.generate(root, frames=REAL_FRAMES, robots=REAL_ROBOTS, n_rings=REAL_RINGS,
+                               n_azimuth=REAL_AZIMUTH, laps=REAL_LAPS)
+    t_gen = time.perf_counter() - t
+    t = time.perf_counter()
+    out = sequence_artifact.run_session(root, device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t
+    log(f"[online] real-format chain, {REAL_ROBOTS} robots x {REAL_FRAMES} frames at "
+        f"{REAL_RINGS}x{REAL_AZIMUTH}: generate {t_gen:.3f} s, run_session {t_run:.3f} s; {out}")
+    if out["frames"] != REAL_ROBOTS * REAL_FRAMES:
+        raise AssertionError(f"run_session read {out['frames']} frames")
+    if not out["ate_rmse_m"] < 0.5:
+        raise AssertionError(f"real-format ATE {out['ate_rmse_m']} m >= 0.5 m")
+    return vgicp_launches, stream_stencil + map_stencil, st["max_abs_err"]
+
+
 def main() -> int:
     import torch
 
@@ -799,9 +1120,16 @@ def main() -> int:
     phase_build()
     vgicp = phase_kernel(dev)
     stencil_err = phase_stencil(dev)
-    vgicp_launches, res, scans, cfg = phase_main(dev)
+    vgicp_launches, res, scans, cfg, trajs, host_scans = phase_main(dev)
     stencil_launches, stencil = phase_map(res, scans, cfg, dev)
-    stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err)
+    del res, scans
+    online_vgicp, online_stencil, online_err = phase_online(dev, trajs, host_scans, cfg)
+    log(f"[online] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
+        f"{online_vgicp} (phase 7), terrain_stencil {stencil_launches} (phase 6) + "
+        f"{online_stencil} (phase 7)")
+    vgicp_launches += online_vgicp
+    stencil_launches += online_stencil
+    stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err, online_err)
     print(json.dumps({"kernels": [
         dict(name="vgicp_accum", route="cuda", source="mr_slam_torch/csrc/vgicp_accum.cu",
              replaces="mr_slam_tpu/ops/pallas_vgicp.py:77", launches=vgicp_launches, **vgicp),

@@ -1,7 +1,7 @@
 """Array-native multi-robot pose graph (port of
 `mr_slam_tpu/backend/factor_graph.py`: `FactorGraph`, `init`,
-`add_nodes_batch`, `add_edges_batch`, the gtsam key codec and
-`connected_robots`).
+`add_node`, `add_edge`, `add_nodes_batch`, `add_edges_batch`, the gtsam
+key codec and `connected_robots`).
 
 Node and edge counts are host integers (the graph is built on the host
 side of the pipeline); the reference's `mode="drop"` scatters become
@@ -79,6 +79,41 @@ def _put(buf: torch.Tensor, start: int, vals, k: int) -> torch.Tensor:
             vals = vals[:k]
         out[start:start + k] = vals
     return out
+
+
+def add_node(g: FactorGraph, pose: Pose, robot: int):
+    """Append one node (no-op when full). Returns (graph, node index):
+    the index is min(n_nodes, capacity - 1), as the reference's."""
+    idx = min(g.n_nodes, g.node_capacity - 1)
+    if g.n_nodes >= g.node_capacity:
+        return g, idx
+    g2 = g._replace(
+        poses=Pose(_put(g.poses.R, idx, pose.R[None], 1), _put(g.poses.t, idx, pose.t[None], 1)),
+        node_robot=_put(g.node_robot, idx, int(robot), 1),
+        node_valid=_put(g.node_valid, idx, True, 1),
+        n_nodes=g.n_nodes + 1,
+    )
+    return g2, idx
+
+
+def add_edge(g: FactorGraph, i: int, j: int, meas: Pose, kind: int, w_rot: float,
+             w_trans: float):
+    """Append one edge (no-op when full). Returns (graph, edge index)."""
+    idx = min(g.n_edges, g.edge_capacity - 1)
+    if g.n_edges >= g.edge_capacity:
+        return g, idx
+    g2 = g._replace(
+        edge_i=_put(g.edge_i, idx, int(i), 1),
+        edge_j=_put(g.edge_j, idx, int(j), 1),
+        edge_meas=Pose(_put(g.edge_meas.R, idx, meas.R[None], 1),
+                       _put(g.edge_meas.t, idx, meas.t[None], 1)),
+        edge_kind=_put(g.edge_kind, idx, int(kind), 1),
+        edge_w_rot=_put(g.edge_w_rot, idx, float(w_rot), 1),
+        edge_w_trans=_put(g.edge_w_trans, idx, float(w_trans), 1),
+        edge_valid=_put(g.edge_valid, idx, True, 1),
+        n_edges=g.n_edges + 1,
+    )
+    return g2, idx
 
 
 def add_nodes_batch(g: FactorGraph, poses: Pose, robots: torch.Tensor):

@@ -88,6 +88,78 @@ def project(R: torch.Tensor) -> torch.Tensor:
     return (U * D[..., None, :]) @ Vt
 
 
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternion [w, x, y, z] -> (..., 3, 3)."""
+    q = q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) [w, x, y, z], branch-free (Shepperd): all
+    four constructions, then the one whose pivot (trace or a diagonal
+    entry) is largest; the sign makes w >= 0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    qw = torch.sqrt(torch.clamp(qw, min=_EPS)) * 0.5
+    # argmax keeps the first of equal pivots, as jnp.argmax does
+    case = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    w0, x1, y2, z3 = qw[..., 0], qw[..., 1], qw[..., 2], qw[..., 3]
+    qs = torch.stack(
+        [
+            torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0), (m10 - m01) / (4 * w0)],
+                        dim=-1),
+            torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1), (m02 + m20) / (4 * x1)],
+                        dim=-1),
+            torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2, (m12 + m21) / (4 * y2)],
+                        dim=-1),
+            torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3), (m12 + m21) / (4 * z3), z3],
+                        dim=-1),
+        ],
+        dim=-2,
+    )
+    q = torch.gather(qs, -2, case[..., None, None].expand(*case.shape, 1, 4))[..., 0, :]
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def rpy_to_rot(rpy: torch.Tensor) -> torch.Tensor:
+    """(..., 3) roll/pitch/yaw (ZYX convention) -> rotation matrix."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    cr, sr = torch.cos(r), torch.sin(r)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cy, sy = torch.cos(y), torch.sin(y)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1),
+            torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def rot_to_rpy(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 3) roll/pitch/yaw (ZYX)."""
+    sy = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    pitch = torch.atan2(-R[..., 2, 0], sy)
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
 def yaw_rot(yaw: torch.Tensor) -> torch.Tensor:
     """(...,) yaw angle -> (..., 3, 3) rotation about z."""
     c, s = torch.cos(yaw), torch.sin(yaw)

@@ -94,7 +94,9 @@ class VoxelGrid(NamedTuple):
 
 
 def _pack(coords, count, mean, cov, valid) -> torch.Tensor:
-    sym6 = cov[..., _SYM_I, _SYM_J]
+    # one view per entry: indexing with the index tuples would copy them
+    # to the device from pageable memory, a host sync per call
+    sym6 = torch.stack([cov[..., i, j] for i, j in zip(_SYM_I, _SYM_J)], dim=-1)
     pad = torch.zeros_like(count)
     return torch.cat(
         [

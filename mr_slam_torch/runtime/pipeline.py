@@ -77,8 +77,10 @@ def run_frontend(
 ) -> RobotResult:
     """Scan-to-map odometry + keyframe extraction for one robot's scan
     sequence (stacked (T, P, 3)/(T, P), body frame). A Python loop over
-    frames with no per-frame host sync: the keyframe flags come back to
-    the host once, at the end. Only the scan2map front-end is ported."""
+    frames that reads none of its results on the host: the keyframe
+    flags come back once, at the end. (On the card each odometry step
+    still syncs inside `so3.project`, whose `torch.linalg.svd` checks
+    cuSOLVER's status.) Only the scan2map front-end is ported."""
     if cfg.odometry.frontend != "scan2map":
         raise NotImplementedError(f"front-end {cfg.odometry.frontend!r} is not ported")
     dev = scans.xyz.device

@@ -179,3 +179,40 @@ def slam_result_to_jax(res):
         robots=robots, graph=None, opt_poses=pose_to_jax(res.opt_poses),
         node_of=np.asarray(res.node_of), loops=[],
     )
+
+
+# --------------------------------------------------------------------------
+# the reference session behind `chip_smoke.JAX_REF_ONLINE_ATE`
+# --------------------------------------------------------------------------
+
+
+def online_reference():
+    """Run the reference's `OnlineSlam` (JAX on the CPU) over the stream
+    and config of `chip_smoke.py` phase 7: phase 5's scans as one
+    interleaved stream, GEM on, the reference launch's cadences. Returns
+    (per-robot keyframe ATE in m, accepted inter-robot loops, accepted
+    loops). Run from the repository root:
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import online_reference; \\
+            print(online_reference())"
+    """
+    import chip_smoke
+    from mr_slam_tpu.runtime import config as jcfg
+    from mr_slam_tpu.runtime import online as jonline
+
+    trajs, scans, cfg = chip_smoke.scenario()
+    ocfg = chip_smoke.online_config(cfg)
+    sess = jonline.OnlineSlam(jcfg.SlamConfig.from_json(ocfg.to_json()), enable_gem=True)
+    for f in chip_smoke.online_frames(trajs, scans):
+        if f.robot not in sess.robots:
+            sess.register_robot(f.robot, pose_to_jax(f.origin))
+        sess.add_frame(f.robot, cloud_to_jax(f.scan), stamp=f.stamp)
+    res = sess.result()
+    opt_t = np.asarray(res.opt_poses.t)
+    ates = tuple(
+        chip_smoke.online_ate((np.asarray(res.robots[r].store.stamps),
+                               int(res.robots[r].store.count)), opt_t, res.node_of[r], trajs[r], r)
+        for r in range(len(trajs))
+    )
+    inter = sum(l["robot_a"] != l["robot_b"] for l in res.loops)
+    return ates, inter, len(res.loops)
