@@ -84,7 +84,29 @@ Phases (each prints its own lines; any failure exits non-zero):
                checkpoint's size and save / load walls, and the
                real-format walls.
 
-Every kernel check of phases 3, 4 and 6 prints, for its shape, the
+  8. desc    — place recognition on the card: every `LoopCfg.method`
+               (scancontext, ring, ringpp, disco, m2dp, fasthist) through
+               `pipeline.compute_descriptors` on phase 5's stores (3 x
+               256 slots), twice (bit-identical), against the port's CPU
+               path on robot 0's first DESC_CPU_KF keyframes, with ms per
+               keyframe slot, peak memory and host syncs per store;
+               `pipeline.run` with RING descriptors and RING-seeded
+               verification (`ring_config`)
+               on phase 5's scans: ATE < 1 m and within 1.25 x the JAX
+               reference + 0.05 m (JAX_REF_RING_ATE), >= 1 inter-robot
+               loop, the VGICP kernel launched at B = 16 (two seeds x 8
+               candidates) and one such launch held against its plain
+               version; the 10.2 m / 0.9 rad offset loop of the
+               reference's `tests/test_loop_verify.py` at 32x1024
+               (`offset_case`) recovered to 1 m by the RING seeds and
+               not by yaw-only seeding; recall@1..5 of every method on a
+               two-lap revisit set (`recall_set`) within 0.05 of the JAX
+               reference (JAX_REF_RECALL); a DiSCO session (GEM off) over
+               the first DISCO_FRAMES frames per robot of phase 7's
+               stream, saved and loaded at the midpoint, bit-identical to
+               the uninterrupted one, its complex64 spectra included.
+
+Every kernel check of phases 3, 4, 6 and 8 prints, for its shape, the
 device time (`graph_ms`: calls captured in a CUDA graph, replays timed
 with CUDA events), the eager call time (`_cuda_ms`), the plain
 version's time, and the bound (`bound`: bytes over the HBM rate or f32
@@ -92,10 +114,12 @@ operations over the f32 peak, whichever is larger) with the device
 time's share of it.
 
 The last three lines are the kernels' JSON record (the launch counts of
-the main path's runs of phases 5 and 6 plus the online session's of
-phase 7; the times, error and bound of
+the main path's runs of phases 5 and 6, the online session's of phase 7
+and phase 8's RING run, offset verify and DiSCO session; the times and
+bound of
 each kernel at the main path's shape: VGICP's fine/slot/center/pose
-call at B = 8, the stencil at the 600^2 map grid), the card's name and
+call at B = 8, the stencil at the 600^2 map grid; the largest error of
+any check on the main path's runs), the card's name and
 power limit as `nvidia-smi` prints them, and `{"ok": true, "device":
 {...}}`.
 """
@@ -1112,6 +1136,384 @@ def phase_online(dev, trajs, host_scans, cfg):
     return vgicp_launches, stream_stencil + map_stencil, st["max_abs_err"]
 
 
+# --------------------------------------------------------------------------
+# phase 8: place descriptors, RING-seeded verification, recall, DiSCO session
+# --------------------------------------------------------------------------
+
+DESC_METHODS = ("scancontext", "ring", "ringpp", "disco", "m2dp", "fasthist")
+# card against the port's CPU path on the same keyframes: the fraction of
+# descriptor entries within DESC_CLOSE of the largest entry must be at
+# least DESC_CLOSE_FRAC. The card's atan2 / sqrt / sin / cos round
+# differently from the CPU's, which moves a point across a bin edge now
+# and then (one occupancy or max-height cell). RING++ is held instead to
+# RINGPP_MAX_ERR of its largest entry, the bound of its CPU parity tests
+# against the reference: its k-NN distances come from another library's
+# matmul and its eigen features round differently on the card, and one
+# changed BEV cell moves every ray through it.
+DESC_CLOSE, DESC_CLOSE_FRAC, RINGPP_MAX_ERR = 1e-4, 0.99, 5e-2
+DESC_CPU_KF = 16  # keyframes of robot 0 described on the CPU as well
+# RING gate of the RING-seeded pipeline.run: on phase 5's keyframes (the
+# JAX reference's descriptors) same-place inter-robot pairs lie at cosine
+# distance 0.010-0.029 and every pair more than 10 m apart at >= 0.050
+RING_GATE = 0.04
+RING_KF_CAPACITY = 64  # 40 frames give at most 40 keyframes per robot
+# Keyframe ATE (m) of `mr_slam_tpu.runtime.pipeline.run` on the CPU for
+# phase 5's scans under `ring_config` (`tests/torch_parity.ring_reference`),
+# and the inter-robot loops it accepts.
+JAX_REF_RING_ATE = (0.042803242802619934, 0.059138692915439606, 0.04119480028748512)
+JAX_REF_RING_LOOPS = 24
+# the recall set: `tests/test_recall_harness.py`'s two laps of the
+# radius-20 ring road of world 9 at full width (32x1024 rays), 72 frames
+# so that one query is 1/36 of recall, under the 0.05 band
+RECALL_FRAMES, RECALL_RADIUS, RECALL_MIN_SEP, RECALL_MAX_N = 72, 6.0, 8, 5
+# recall@1 of `mr_slam_tpu.eval.recall_harness.evaluate_method` on the
+# CPU over the same clouds (`tests/torch_parity.recall_reference`)
+JAX_REF_RECALL = dict(scancontext=1.0, ring=1.0, ringpp=1.0, disco=1.0, m2dp=0.9305555820465088,
+                      fasthist=0.9027777910232544)
+RECALL_BAND = 0.05
+DISCO_FRAMES = 20  # frames per robot of the DiSCO session
+# the offset case's world (extent 60, 40 boxes). The reference test's
+# world 11 is drawn with jax.random; of the port's numpy worlds 11-30 the
+# reference's own RING-seeded verify recovers the offset in 11 (the
+# others end 3-30 m off at fitness 1.0, both packages alike); 13 is the
+# first of them.
+OFFSET_WORLD = 13
+
+
+def ring_config(cfg):
+    """Phase 5's config with RING descriptors and RING-seeded
+    verification: the descriptor gate RING_GATE, the BEV floor 0.3 m and
+    the fitness gate 0.15 of `tests/test_loop_verify.py`, keyframe
+    capacity RING_KF_CAPACITY."""
+    import dataclasses
+
+    return cfg.replace(
+        keyframes=dataclasses.replace(cfg.keyframes, capacity=RING_KF_CAPACITY),
+        loops=dataclasses.replace(cfg.loops, method="ring", dist_thresh=RING_GATE,
+                                  bev_z_min=0.3, fitness_thresh=0.15),
+    )
+
+
+def recall_set():
+    """(clouds (RECALL_FRAMES, 32768) on the host, positions (F, 3)):
+    two laps of the radius-20 ring road of world 9, 32x1024 rays, noise
+    from seed 0."""
+    import torch
+
+    from mr_slam_torch.datasets import synthetic
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    world = synthetic.default_world(9)
+    traj = synthetic.circle_trajectory(RECALL_FRAMES, radius=20.0, laps=2.0)
+    rng = np.random.default_rng(0)
+    clouds = []
+    for i in range(RECALL_FRAMES):
+        xyz, _, hit = synthetic.scan(world, se3.index(traj, i), n_rings=RINGS, n_azimuth=AZIMUTH,
+                                     rng=rng)
+        clouds.append(synthetic.scan_to_cloud(xyz, hit))
+    return (pcl.PointCloud(torch.stack([c.xyz for c in clouds]), torch.stack([c.mask for c in clouds])),
+            traj.t)
+
+
+def offset_case():
+    """The JAX package's 10 m offset loop (`tests/test_loop_verify.py`
+    TestOffsetLoopVerification) at 32x1024: keyframe a at (-4, 2) yaw
+    0.3, b at (6, 4) yaw 1.2 (10.2 m, 0.9 rad apart), its config, in
+    world OFFSET_WORLD. Returns (config, [(pose, host cloud)] for a and
+    b)."""
+    import torch
+
+    from mr_slam_torch.datasets import synthetic
+    from mr_slam_torch.geometry import so3
+    from mr_slam_torch.geometry.se3 import Pose
+    from mr_slam_torch.runtime.config import LoopCfg, OdometryCfg, SlamConfig
+
+    world = synthetic.default_world(OFFSET_WORLD, extent=60.0, n_boxes=40)
+    cfg = SlamConfig(
+        odometry=OdometryCfg(table_size=1 << 16, scan_capacity=4096),
+        loops=LoopCfg(method="ring", fitness_thresh=0.15, verify_window=0, bev_z_min=0.3,
+                      verify_leaf=0.8, verify_capacity=32768),
+    )
+    sides = []
+    for yaw, t in ((0.3, (-4.0, 2.0, 0.0)), (1.2, (6.0, 4.0, 0.0))):
+        pose = Pose(so3.yaw_rot(torch.tensor(yaw)), torch.tensor(t))
+        xyz, _, hit = synthetic.scan(world, pose, n_rings=RINGS, n_azimuth=AZIMUTH,
+                                     rng=np.random.default_rng(3))
+        sides.append((pose, synthetic.scan_to_cloud(xyz, hit)))
+    return cfg, sides
+
+
+def _clone(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(v) for v in x))
+    return x
+
+
+def _desc_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def descriptors_on_stores(res, cfg, dev):
+    """Step 1: each method's compute_descriptors on phase 5's stores, twice
+    (bit-identical), against the port's CPU path on DESC_CPU_KF
+    keyframes; ms per keyframe slot and peak memory."""
+    import dataclasses
+
+    import torch
+
+    from mr_slam_torch.ops import pointcloud as pcl
+    from mr_slam_torch.runtime import pipeline
+
+    stores = [rr.store for rr in res.robots]
+    slots = sum(s.xyz.shape[0] for s in stores)
+    out = {}
+    for method in DESC_METHODS:
+        mcfg = cfg.replace(loops=dataclasses.replace(cfg.loops, method=method))
+        pipeline.compute_descriptors(stores[0], mcfg)  # warm-up (tap tables, plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        first = [pipeline.compute_descriptors(s, mcfg) for s in stores]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        again = [pipeline.compute_descriptors(s, mcfg) for s in stores]
+        same = all(_desc_equal(a, b) for a, b in zip(first, again))
+        syncs = count_syncs(lambda: pipeline.compute_descriptors(stores[0], mcfg))
+        s0 = stores[0]
+        k = min(DESC_CPU_KF, int(s0.count))
+        cpu = pipeline.describe_one(pcl.PointCloud(s0.xyz[:k].cpu(), s0.mask[:k].cpu()), mcfg)
+        worst = 1.0
+        err = 0.0
+        for name, ref in cpu.items():
+            got = first[0][name][:k].cpu()
+            diff = (got - ref).abs()
+            scale = max(float(ref.abs().max()), 1e-30)
+            err = max(err, float(diff.max()) / scale)
+            worst = min(worst, float((diff <= DESC_CLOSE * scale).float().mean()))
+        log(f"[desc] {method}: {1e3 * wall / slots:.4f} ms per keyframe slot ({slots} slots, "
+            f"{wall:.3f} s), peak {peak / 2**20:.1f} MiB above the stores; host syncs per "
+            f"store {sum(syncs.values())} {dict(syncs)}; two runs "
+            f"bit-identical: {same}; vs CPU on {k} keyframes: max err {err:.3g} of the largest "
+            f"entry, {100 * worst:.3f} % of entries within {DESC_CLOSE:g}")
+        if not same:
+            raise AssertionError(f"{method}: two compute_descriptors runs differ on the card")
+        if method == "ringpp":
+            if not err <= RINGPP_MAX_ERR:
+                raise AssertionError(f"ringpp: max err {err} beyond {RINGPP_MAX_ERR} of the CPU path")
+        elif not worst >= DESC_CLOSE_FRAC:
+            raise AssertionError(f"{method}: only {100 * worst:.3f} % of entries match the CPU path")
+        out[method] = dict(ms_per_kf=1e3 * wall / slots, peak_mib=peak / 2**20, err=err,
+                           syncs=sum(syncs.values()))
+    return out
+
+
+def ring_run(dev, trajs, host_scans, cfg):
+    """Step 2: RING-seeded pipeline.run on phase 5's scans. Returns the
+    VGICP launches of the run and the B = 16 kernel record."""
+    import torch
+
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.runtime import observability as obs
+    from mr_slam_torch.runtime import pipeline
+
+    rcfg = ring_config(cfg)
+    origins = [se3.index(t, 0) for t in trajs]
+    captured = {}
+    launch = hopper_vgicp.gn_accumulate
+
+    def spy(*args, **kw):  # keep one B = 16 call's inputs for the plain comparison
+        if args[0].shape[0] == 2 * 8 and not captured:
+            captured.update(args=[_clone(a) for a in args], kw={k: _clone(v) for k, v in kw.items()})
+        return launch(*args, **kw)
+
+    obs.tracer.stats.clear()
+    obs.metrics.counters.clear()
+    hopper_vgicp.reset_launch_count()
+    hopper_vgicp.gn_accumulate = spy
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        res = pipeline.run(host_scans, rcfg, origins=origins, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        hopper_vgicp.gn_accumulate = launch
+    wall = time.perf_counter() - t
+    by_batch = hopper_vgicp.launches_by_batch()
+    launches = hopper_vgicp.launch_count()
+    spans = obs.tracer.report()
+    counters = dict(obs.metrics.counters)
+    inter = [l for l in res.loops if l["robot_a"] != l["robot_b"]]
+    ates = [_ate(res, trajs, r) for r in range(N_ROBOTS)]
+    log(f"[ring] pipeline.run (method ring, gate {RING_GATE}) wall {wall:.3f} s; "
+        f"backend.prepare {spans['backend.prepare']['total_s']:.3f} s, backend.associate "
+        f"{spans['backend.associate']['total_s']:.3f} s, backend.solve "
+        f"{spans['backend.solve']['total_s']:.3f} s; vgicp_accum launches {launches} by batch "
+        f"{dict(sorted(by_batch.items()))}")
+    log(f"[ring] loops: candidates {counters.get('loops.candidates', 0):.0f}, verified "
+        f"{counters.get('loops.verified', 0):.0f}, accepted after PCM {len(res.loops)} "
+        f"({len(inter)} inter-robot), PCM rejected {counters.get('backend.pcm_rejected', 0):.0f}; "
+        f"keyframe ATE per robot (m) {[round(a, 4) for a in ates]}; JAX reference "
+        f"{JAX_REF_RING_ATE} ({JAX_REF_RING_LOOPS} inter-robot loops)")
+    if not inter:
+        raise AssertionError("the RING-seeded run accepted no inter-robot loop")
+    for r, a in enumerate(ates):
+        if not a < 1.0:
+            raise AssertionError(f"RING run: robot {r} keyframe ATE {a:.3f} m >= 1.0 m")
+        if JAX_REF_RING_ATE is not None and not a <= 1.25 * JAX_REF_RING_ATE[r] + 0.05:
+            raise AssertionError(f"RING run: robot {r} ATE {a:.3f} m beyond 1.25 x JAX "
+                                 f"{JAX_REF_RING_ATE[r]} + 0.05")
+    if not by_batch.get(16, 0) > 0 or not captured:
+        raise AssertionError(f"no vgicp_accum launch at B = 16 in the RING run: {by_batch}")
+    a = captured["args"]
+    record = check_vgicp("B=16 RING-seeded verify (2 seeds x 8 candidates)", a[0], a[1], a[2],
+                         captured["kw"])
+    return launches, record, dict(ates=ates, loops=len(inter), by_batch=by_batch)
+
+
+def offset_verify(dev):
+    """Step 3: a RING-seeded verify recovers the 10.2 m, 0.9 rad offset."""
+    import torch
+
+    from mr_slam_torch.frontend import keyframes as kf
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.runtime import loopstage, pipeline
+
+    cfg, sides = offset_case()
+    stores, descs = [], []
+    for pose, cloud in sides:
+        s = kf.init(4, cloud.xyz.shape[0], dev)
+        s, added = kf.maybe_add(s, type(cloud)(cloud.xyz.to(dev), cloud.mask.to(dev)), pose.to(dev),
+                                torch.zeros((), device=dev), dist_thresh=0.0, leaf=0.1)
+        stores.append(s)
+        descs.append(pipeline.compute_descriptors(s, cfg))
+    _, yaw = pipeline._descriptor_distances(descs[0], 0, descs[1], cfg)
+    hopper_vgicp.reset_launch_count()
+    idx = torch.zeros((1,), dtype=torch.int64, device=dev)
+    rel, fit = loopstage.verify_chunk(stores[0], stores[1], idx, idx, yaw[:1], cfg, False,
+                                      descs_a=descs[0], descs_b=descs[1])
+    launches = hopper_vgicp.launch_count()
+    true = se3.between(sides[1][0], sides[0][0])
+    terr = float(torch.linalg.norm(rel.t[0].cpu() - true.t))
+    log(f"[offset] RING-seeded verify of the 10.2 m / 0.9 rad offset: fitness {float(fit[0]):.4f} "
+        f"(gate {cfg.loops.fitness_thresh}), translation error {terr:.3f} m, yaw guess "
+        f"{float(yaw[0]):.4f} rad; vgicp_accum launches {launches} (B = 2: the two seeds)")
+    if not (float(fit[0]) < cfg.loops.fitness_thresh and terr < 1.0):
+        raise AssertionError(f"10 m offset not recovered: fitness {float(fit[0])}, error {terr} m")
+    # yaw-only seeding at zero translation lies outside the VGICP basin
+    rel0, fit0 = loopstage.verify_chunk(stores[0], stores[1], idx, idx, yaw[:1], cfg, False)
+    terr0 = float(torch.linalg.norm(rel0.t[0].cpu() - true.t))
+    launches = hopper_vgicp.launch_count()
+    log(f"[offset] yaw-only seeding: fitness {float(fit0[0]):.4f}, translation error {terr0:.3f} m")
+    if float(fit0[0]) < cfg.loops.fitness_thresh and terr0 <= 2.0:
+        raise AssertionError("yaw-only seeding solved the 10 m offset: the case tests nothing")
+    return launches
+
+
+def recall_phase(dev):
+    """Step 4: recall@1 of every method on the two-lap set at 32x1024."""
+    import torch
+
+    from mr_slam_torch.eval import recall_harness
+
+    t = time.perf_counter()
+    clouds, positions = recall_set()
+    log(f"[recall] {RECALL_FRAMES} scans raycast in {time.perf_counter() - t:.1f} s")
+    out = {}
+    for method in DESC_METHODS:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = recall_harness.evaluate_method(method, clouds, positions, radius=RECALL_RADIUS,
+                                             min_separation=RECALL_MIN_SEP, max_n=RECALL_MAX_N,
+                                             device=dev)
+        r = res.recall_at_n.cpu().tolist()
+        wall = time.perf_counter() - t
+        ref = None if JAX_REF_RECALL is None else JAX_REF_RECALL[method]
+        log(f"[recall] {method}: recall@1..{RECALL_MAX_N} {[round(x, 4) for x in r]}, "
+            f"top-1% {float(res.top1_percent):.4f}; {wall:.3f} s; JAX reference recall@1 {ref}")
+        if ref is not None and not abs(r[0] - ref) <= RECALL_BAND:
+            raise AssertionError(f"{method}: recall@1 {r[0]} beyond {RECALL_BAND} of JAX {ref}")
+        out[method] = r[0]
+    return out
+
+
+def disco_session(dev, trajs, host_scans, cfg):
+    """Step 5: a DiSCO session (GEM off) over the first DISCO_FRAMES
+    frames per robot of phase 7's stream, saved and loaded at the
+    midpoint: bit-identical to the uninterrupted session, descriptors
+    (the complex64 spectra) included. Returns its VGICP launches."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from mr_slam_torch.datasets import replay
+    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.ops import pointcloud as pcl
+    from mr_slam_torch.runtime import checkpoint, online
+
+    dcfg = online_config(cfg)
+    dcfg = dcfg.replace(loops=dataclasses.replace(dcfg.loops, method="disco"))
+    frames = online_frames(trajs, [pcl.PointCloud(s.xyz[:DISCO_FRAMES], s.mask[:DISCO_FRAMES])
+                                   for s in host_scans])
+    hopper_vgicp.reset_launch_count()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    whole = online.OnlineSlam(dcfg, device=dev)
+    replay.replay(frames, whole)
+    want = whole.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = hopper_vgicp.launch_count()
+    half = len(frames) // 2
+    first = online.OnlineSlam(dcfg, device=dev)
+    replay.replay(frames[:half], first)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mr_slam_torch", "build",
+                        "online", "disco_session.npz")
+    checkpoint.save_session(first, path)
+    resumed = checkpoint.load_session(path, device=dev)
+    replay.replay(frames[half:], resumed)
+    got = resumed.result()
+    spec = whole.mstore.descriptors["spec"]
+    same = _same_result(got, want) and _desc_equal(resumed.mstore.descriptors, whole.mstore.descriptors)
+    inter = [l for l in want.loops if l["robot_a"] != l["robot_b"]]
+    log(f"[disco] session of {len(frames)} frames (method disco, GEM off): {wall:.3f} s, keyframes "
+        f"{[int(r.store.count) for r in want.robots]}, loops accepted {len(want.loops)} "
+        f"({len(inter)} inter-robot), vgicp_accum launches {launches}; stored spectra "
+        f"{tuple(spec.shape)} {spec.dtype}; checkpoint at frame {half} "
+        f"{os.path.getsize(path) / 2**20:.2f} MiB; resumed session bit-identical (poses, loops, "
+        f"descriptors): {same}")
+    if spec.dtype != torch.complex64:
+        raise AssertionError(f"DiSCO spectra stored as {spec.dtype}")
+    if not same:
+        raise AssertionError("the resumed DiSCO session differs from the uninterrupted one")
+    return launches
+
+
+def phase_descriptors(dev, res, trajs, host_scans, cfg):
+    """Phase 8 (see the module docstring). Returns (VGICP launches of its
+    main-path runs, the B = 16 kernel record, the numbers it printed)."""
+    desc = descriptors_on_stores(res, cfg, dev)
+    ring_launches, record16, ring = ring_run(dev, trajs, host_scans, cfg)
+    offset_launches = offset_verify(dev)
+    recall = recall_phase(dev)
+    disco_launches = disco_session(dev, trajs, host_scans, cfg)
+    log(f"[desc] vgicp_accum launches in phase 8: RING run {ring_launches}, offset verify "
+        f"{offset_launches}, DiSCO session {disco_launches}")
+    return (ring_launches + offset_launches + disco_launches, record16,
+            dict(desc=desc, ring=ring, recall=recall))
+
+
 def main() -> int:
     import torch
 
@@ -1122,12 +1524,14 @@ def main() -> int:
     stencil_err = phase_stencil(dev)
     vgicp_launches, res, scans, cfg, trajs, host_scans = phase_main(dev)
     stencil_launches, stencil = phase_map(res, scans, cfg, dev)
-    del res, scans
+    del scans
     online_vgicp, online_stencil, online_err = phase_online(dev, trajs, host_scans, cfg)
-    log(f"[online] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
-        f"{online_vgicp} (phase 7), terrain_stencil {stencil_launches} (phase 6) + "
-        f"{online_stencil} (phase 7)")
-    vgicp_launches += online_vgicp
+    desc_vgicp, record16, _ = phase_descriptors(dev, res, trajs, host_scans, cfg)
+    log(f"[desc] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
+        f"{online_vgicp} (phase 7) + {desc_vgicp} (phase 8), terrain_stencil "
+        f"{stencil_launches} (phase 6) + {online_stencil} (phase 7)")
+    vgicp_launches += online_vgicp + desc_vgicp
+    vgicp["max_abs_err"] = max(vgicp["max_abs_err"], record16["max_abs_err"])
     stencil_launches += online_stencil
     stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err, online_err)
     print(json.dumps({"kernels": [

@@ -14,10 +14,11 @@ Layout (the reference's, slice by slice):
              hand-written Hopper kernel (`ops/hopper_vgicp.py`,
              `csrc/vgicp_accum.cu`)
   frontend/  scan-to-map odometry + keyframe gating
-  loop/      ScanContext descriptors
+  loop/      place descriptors (ScanContext, RING / RING++, DiSCO and the
+             DiscoNet forward pass, M2DP, FastHistogram)
   backend/   factor graph, PCM gating, chordal PGO
   runtime/   config, loop stage, end-to-end pipeline, tracing
-  eval/      ATE
+  eval/      ATE, RPE, recall@N and the recall harness
   datasets/  synthetic multi-robot worlds (numpy raycaster)
 """
 from . import precision as _precision

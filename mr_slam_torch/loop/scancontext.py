@@ -1,5 +1,5 @@
 """ScanContext place recognition (port of `mr_slam_tpu/loop/scancontext.py`:
-`describe`, `ring_key`, `distance`).
+`describe`, `ring_key`, `distance`, `retrieve`).
 
 Descriptor = polar max-height matrix (rings x sectors); retrieval key =
 per-ring mean; matching = cosine distance minimized over all circular
@@ -48,3 +48,12 @@ def distance(query: torch.Tensor, database: torch.Tensor):
     sims = sims.reshape(*lead, S, -1).transpose(-1, -2)           # (..., D, S)
     best_sim, best = torch.max(sims, dim=-1)
     return 1.0 - best_sim, best
+
+
+def retrieve(query_key: torch.Tensor, db_keys: torch.Tensor, db_mask: torch.Tensor):
+    """Ring-key nearest neighbours: distances (..., D) of query keys (...,
+    R) against a database (D, R), invalid entries +inf (`main_SC.py:160`
+    KDTree retrieval, without the tree)."""
+    diff = db_keys - query_key[..., None, :]
+    d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    return torch.where(db_mask, d, torch.inf)

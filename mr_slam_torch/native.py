@@ -1,14 +1,15 @@
 """ctypes loaders for the framework-free native components: the
 max-clique solver (`csrc/maxclique.cpp`, the same bytes as the
-reference's `native/maxclique.cpp`) and the binary scan log with its
+reference's `native/maxclique.cpp`), the binary scan log with its
 prefetching reader (`csrc/scanlog.cpp`, the port's copy of
-`native/scanlog.cpp`).
+`native/scanlog.cpp`) and the incremental descriptor kd-tree
+(`csrc/kdtree.cpp`, the port's copy of `native/kdtree.cpp`).
 
 Each source is compiled with g++ into `mr_slam_torch/build/` (listed in
 `.gitignore`) at first use; the library name carries a digest of the
 source and the flags. Unlike the reference, which drops to fallbacks
-when its build fails (a greedy clique heuristic, no scan log), a failed
-build raises here.
+when its build fails (a greedy clique heuristic, no scan log, a numpy
+brute-force index), a failed build raises here.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc" / "maxclique.cpp"
 _SCANLOG_SRC = _PKG / "csrc" / "scanlog.cpp"
+_KDTREE_SRC = _PKG / "csrc" / "kdtree.cpp"
 _BUILD = _PKG / "build"
 _FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
@@ -80,6 +82,25 @@ def load_scanlog() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
     ]
     lib.mrslam_scanlog_close.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@functools.cache
+def load_kdtree() -> ctypes.CDLL:
+    """Build (if needed) and load the descriptor kd-tree library."""
+    lib = _build(_KDTREE_SRC)
+    lib.mrslam_kdtree_create.restype = ctypes.c_void_p
+    lib.mrslam_kdtree_create.argtypes = [ctypes.c_int]
+    lib.mrslam_kdtree_insert.restype = ctypes.c_int
+    lib.mrslam_kdtree_insert.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+    lib.mrslam_kdtree_size.restype = ctypes.c_int
+    lib.mrslam_kdtree_size.argtypes = [ctypes.c_void_p]
+    lib.mrslam_kdtree_knn.restype = ctypes.c_int
+    lib.mrslam_kdtree_knn.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+    ]
+    lib.mrslam_kdtree_destroy.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -157,3 +178,54 @@ class ScanLogReader:
         if self._h:
             self._lib.mrslam_scanlog_close(self._h)
             self._h = None
+
+
+class DescriptorKNN:
+    """Incremental k-NN over descriptor vectors — the host-side
+    descriptor index of the back-end (the insertion-capable kd-tree of
+    `global_manager/src/kdtree.cpp`). Not on the card's path: retrieval
+    there is one batched distance computation per robot pair
+    (`runtime/loopstage.retrieve`)."""
+
+    def __init__(self, dim: int):
+        self.dim = int(dim)
+        self._lib = load_kdtree()
+        self._h = self._lib.mrslam_kdtree_create(self.dim)
+
+    def _vec(self, v) -> np.ndarray:
+        v = np.ascontiguousarray(np.asarray(v, np.float32).ravel())
+        if v.shape[0] != self.dim:
+            raise ValueError(f"expected dim {self.dim}, got {v.shape[0]}")
+        return v
+
+    def _handle(self):
+        if not self._h:
+            raise ValueError("use of a closed DescriptorKNN")
+        return self._h
+
+    def __len__(self) -> int:
+        return self._lib.mrslam_kdtree_size(self._handle())
+
+    def insert(self, vec) -> int:
+        """Add one row; returns its index."""
+        return self._lib.mrslam_kdtree_insert(self._handle(), _fptr(self._vec(vec)))
+
+    def knn(self, query, k: int):
+        """(indices (m,), distances (m,)) of the m <= k nearest rows,
+        nearest first."""
+        query = self._vec(query)
+        k = max(int(k), 0)
+        idx = np.zeros((max(k, 1),), np.int32)
+        dist = np.zeros((max(k, 1),), np.float32)
+        m = self._lib.mrslam_kdtree_knn(self._handle(), _fptr(query), k,
+                                        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                                        _fptr(dist))
+        return idx[:m].astype(np.int64), dist[:m]
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.mrslam_kdtree_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

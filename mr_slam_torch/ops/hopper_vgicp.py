@@ -51,6 +51,7 @@ launches the kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -71,6 +72,7 @@ _TRI = [  # (row, col) order of the 21 upper-triangle integrands
 _N_OUT = 44  # H (36, both triangles), b (6), cost, inliers
 
 _launches = 0
+_by_batch: collections.Counter = collections.Counter()
 
 
 def launch_count() -> int:
@@ -79,9 +81,15 @@ def launch_count() -> int:
     return _launches
 
 
+def launches_by_batch() -> dict[int, int]:
+    """The same launches by batch size B."""
+    return dict(_by_batch)
+
+
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+    _by_batch.clear()
 
 
 # --------------------------------------------------------------------------
@@ -311,6 +319,7 @@ def _launch(xyz, mask, table, leaf, slot, found, eps, max_corr2, center, pose, c
     if err != 0:
         raise RuntimeError(f"vgicp_accum launch failed: CUDA error {err}")
     _launches += 1
+    _by_batch[B] += 1
     return out
 
 

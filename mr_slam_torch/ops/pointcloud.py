@@ -1,6 +1,7 @@
 """Fixed-capacity masked point clouds and PCL-filter equivalents (port of
-`mr_slam_tpu/ops/pointcloud.py`: `PointCloud`, `park`, `crop_box`,
-`transform`, `voxel_downsample`).
+`mr_slam_tpu/ops/pointcloud.py`: `PointCloud`, `make`, `park`, `pad_to`,
+`compact`, `crop_box`, `crop_radius`, `transform`, `voxel_downsample`,
+`knn`, `covariances_knn`).
 
 Every cloud is a fixed-capacity (..., N, 3) buffer with an (..., N)
 validity mask; invalid slots hold the finite SENTINEL coordinate. The
@@ -34,11 +35,38 @@ class PointCloud(NamedTuple):
 SENTINEL = 1e6  # parked coordinate for invalid slots
 
 
+def make(xyz: torch.Tensor, mask: torch.Tensor | None = None) -> PointCloud:
+    if mask is None:
+        mask = torch.ones(xyz.shape[:-1], dtype=torch.bool, device=xyz.device)
+    return park(PointCloud(xyz.to(torch.float32), mask))
+
+
 def park(pc: PointCloud) -> PointCloud:
     """Move invalid points to the far-away sentinel so they can never be
     nearest neighbours or fall into real voxels."""
     xyz = torch.where(pc.mask[..., None], pc.xyz, torch.full_like(pc.xyz, SENTINEL))
     return PointCloud(xyz, pc.mask)
+
+
+def pad_to(pc: PointCloud, capacity: int) -> PointCloud:
+    """Grow (or shrink, keeping valid-first order) to a fixed capacity."""
+    n = pc.xyz.shape[-2]
+    if n == capacity:
+        return pc
+    if n < capacity:
+        pad = capacity - n
+        xyz = torch.cat([pc.xyz, pc.xyz.new_full((*pc.xyz.shape[:-2], pad, 3), SENTINEL)], dim=-2)
+        mask = torch.cat([pc.mask, pc.mask.new_zeros((*pc.mask.shape[:-1], pad))], dim=-1)
+        return PointCloud(xyz, mask)
+    pc = compact(pc)
+    return PointCloud(pc.xyz[..., :capacity, :], pc.mask[..., :capacity])
+
+
+def compact(pc: PointCloud) -> PointCloud:
+    """Stable-sort valid points to the front (same capacity)."""
+    order = torch.sort((~pc.mask).to(torch.uint8), dim=-1, stable=True).indices
+    xyz = torch.gather(pc.xyz, -2, order[..., None].expand(pc.xyz.shape))
+    return PointCloud(xyz, torch.gather(pc.mask, -1, order))
 
 
 def crop_box(pc: PointCloud, lo, hi) -> PointCloud:
@@ -48,6 +76,12 @@ def crop_box(pc: PointCloud, lo, hi) -> PointCloud:
     hi = const(tuple(float(v) for v in hi), pc.xyz.device)
     inside = torch.all((pc.xyz >= lo) & (pc.xyz <= hi), dim=-1)
     return park(PointCloud(pc.xyz, pc.mask & inside))
+
+
+def crop_radius(pc: PointCloud, center, radius: float) -> PointCloud:
+    c = const(tuple(float(v) for v in center), pc.xyz.device)
+    d2 = torch.sum((pc.xyz - c) ** 2, dim=-1)
+    return park(PointCloud(pc.xyz, pc.mask & (d2 <= radius * radius)))
 
 
 def transform(pc: PointCloud, pose) -> PointCloud:
@@ -116,3 +150,87 @@ def voxel_downsample(
     centroids = sums / torch.clamp(cnts[..., None], min=1.0)
     out = park(PointCloud(centroids, out_mask))
     return PointCloud(out.xyz.reshape(*batch, capacity, 3), out.mask.reshape(*batch, capacity))
+
+
+# knn materialises (M, N) distance and sort-key matrices per cloud;
+# clouds are taken in chunks of at most this many matrix entries (2^26:
+# 256 MiB of f32 distances and 512 MiB of int64 keys), so a 256-keyframe
+# store of 4096-point clouds goes 4 clouds at a time
+KNN_CHUNK_ELEMS = 1 << 26
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """x0^2 + x1^2 + x2^2 in float32 as fused multiply-adds,
+    fma(x2, x2, fma(x1, x1, x0 * x0)) (the products exact in float64),
+    the rounding of the reference's CPU lowering: the squared norms
+    enter a difference of large terms, where an ulp moves neighbours."""
+    xd = x.double()
+    acc = (xd[..., 0] * xd[..., 0]).float()
+    acc = (acc.double() + xd[..., 1] * xd[..., 1]).float()
+    return (acc.double() + xd[..., 2] * xd[..., 2]).float()
+
+
+def _order_key(d2: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order like the float32 values `d2` (-0.0 as 0.0),
+    the lower column first among equal values: the reference's `top_k`
+    tie rule, which `torch.topk` does not promise."""
+    bits = (d2 + 0.0).view(torch.int32)
+    mono = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    col = torch.arange(d2.shape[-1], device=d2.device)
+    return mono * d2.shape[-1] + col
+
+
+def _knn_one(query: torch.Tensor, xyz: torch.Tensor, mask: torch.Tensor, k: int):
+    d2 = _sum_sq(query)[..., None] + _sum_sq(xyz)[..., None, :] \
+        - (2.0 * query) @ xyz.transpose(-1, -2)
+    d2 = torch.where(mask[..., None, :], d2, torch.inf)
+    idx = torch.topk(_order_key(d2), k, dim=-1, largest=False, sorted=True).indices
+    return torch.clamp(torch.gather(d2, -1, idx), min=0.0), idx
+
+
+def knn(query: torch.Tensor, pc: PointCloud, k: int):
+    """Brute-force k-NN of queries (..., M, 3) against masked clouds
+    (..., N, 3): |q - p|^2 = |q|^2 + |p|^2 - 2 q.p, then the k smallest
+    in ascending order, the lower index first among equal distances.
+    Leading dims are independent clouds, taken in chunks of
+    `KNN_CHUNK_ELEMS` distance entries. Returns (dists (..., M, k), idx
+    (..., M, k)); masked points get +inf distance."""
+    batch = query.shape[:-2]
+    M, N = query.shape[-2], pc.xyz.shape[-2]
+    q = query.reshape(-1, M, 3)
+    xyz = pc.xyz.reshape(-1, N, 3)
+    mask = pc.mask.reshape(-1, N)
+    step = max(1, KNN_CHUNK_ELEMS // max(M * N, 1))
+    parts = [_knn_one(q[s:s + step], xyz[s:s + step], mask[s:s + step], k)
+             for s in range(0, q.shape[0], step)]
+    d2 = torch.cat([p[0] for p in parts])
+    idx = torch.cat([p[1] for p in parts])
+    return d2.reshape(*batch, M, k), idx.reshape(*batch, M, k)
+
+
+def covariances_knn(pc: PointCloud, k: int = 10):
+    """Per-point neighbourhood mean / covariance via brute-force kNN (the
+    GICP preprocessing), any leading batch of clouds. The k neighbours
+    are summed in distance order, the covariance's products accumulated
+    as fused multiply-adds (float64 products rounded to float32 at each
+    step), as the reference's CPU lowering adds them: nearly planar
+    neighbourhoods leave a smallest eigenvalue at the rounding level,
+    where another order changes the eigen features downstream. Returns
+    (means (..., N, 3), covs (..., N, 3, 3), valid (..., N))."""
+    d2, idx = knn(pc.xyz, pc, k)
+    N = pc.xyz.shape[-2]
+    flat = idx.reshape(*idx.shape[:-2], N * k, 1).expand(*idx.shape[:-2], N * k, 3)
+    neigh = torch.gather(pc.xyz, -2, flat).reshape(*idx.shape, 3)   # (..., N, k, 3)
+    w = torch.isfinite(d2)
+    wn = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1)
+    z = torch.where(w[..., None], neigh, 0.0)
+    total = z[..., 0, :]
+    for j in range(1, k):
+        total = total + z[..., j, :]
+    mean = total / wn
+    d = torch.where(w[..., None], neigh - mean[..., None, :], 0.0).double()
+    acc = (d[..., 0, :, None] * d[..., 0, None, :]).float()
+    for j in range(1, k):
+        acc = (acc.double() + d[..., j, :, None] * d[..., j, None, :]).float()
+    cov = acc / torch.clamp(wn[..., None] - 1, min=1)
+    return mean, cov, pc.mask & (wn[..., 0] >= 3)

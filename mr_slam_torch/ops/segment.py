@@ -18,7 +18,9 @@ scatter-add of the port goes through this module instead:
     sort per call. On the CPU it is `index_add_`.
 
 Scatter-min/max (`scatter_reduce_` with "amin"/"amax") are exact and
-need no such care.
+need no such care, and neither are integer counts (`count`): integer
+additions give the same sum in any order, so a plain `index_add_`
+serves on every device.
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ def index_add(base: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> 
 def scatter_sum(n: int, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """zeros((n, *values.shape[1:])) with values[k] added at index[k]."""
     return _add_into(values.new_zeros((n, *values.shape[1:])), index, values)
+
+
+def count(n: int, index: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """int32 counts (n,) of the entries of `index` where `keep` is true."""
+    out = torch.zeros((n,), dtype=torch.int32, device=index.device)
+    return out.index_add_(0, index.reshape(-1), keep.reshape(-1).to(torch.int32))
 
 
 class ScatterPlan:

@@ -55,7 +55,7 @@ class LoopCfg:
     calibrated in docs/calibration.md (the reference-threshold ->
     ours mapping table); change them together with that table."""
 
-    method: str = "scancontext"     # scancontext | ring | disco
+    method: str = "scancontext"     # scancontext | ring | ringpp | disco | m2dp | fasthist
     dist_thresh: float = 0.25       # descriptor gate (RING 0.48 ->
                                     # cosine ~0.2; docs/calibration.md)
     min_separation: int = 10        # skip recent frames (same robot)

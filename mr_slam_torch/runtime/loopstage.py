@@ -7,7 +7,8 @@ distance against the whole database, top-k on the device, one small host
 transfer). Verification is one batched call per CHUNK of candidates:
 merged-submap prep, three voxel-grid builds and coarse-to-fine VGICP
 over the whole chunk (the reference vmaps; here B is a tensor dimension,
-so one Hopper kernel launch covers the chunk at every GN step).
+so one Hopper kernel launch covers the chunk at every GN step, and the
+two RING seeds per candidate make it 2 x CHUNK).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from ..frontend import keyframes as kf
 from ..geometry import se3, so3
 from ..geometry.se3 import Pose
+from ..loop import ring
 from ..ops import pointcloud as pcl
 from ..ops import registration, voxel_grid
 from . import observability as obs
@@ -105,15 +107,16 @@ def verify_chunk(
     permissive-fitness voxel grids of side a, register side b into them
     from the seed (same-robot: the odometry relative pose; otherwise the
     descriptor yaw guess) — coarse (2 m grid, 4 m radius) then fine
-    VGICP — and score PCL-style fitness against the permissive grid. The
-    RING-family two-hypothesis seeds need `loop/ring.py` (not ported):
-    they raise.
+    VGICP — and score PCL-style fitness against the permissive grid.
+    Cross-robot RING / RING++ candidates with descriptors register from
+    both SE(2) hypotheses of `ring.se2_hypotheses` (yaw and yaw - pi, each
+    with its translation): the seed axis S = 2 folds into the batch, so
+    one VGICP kernel launch covers 2B registrations, and each
+    candidate keeps the seed of lower fitness (the first on a tie).
 
     Returns (rel Pose (B,) mapping b_kf_frame <- a_kf_frame points,
     fitness (B,))."""
     L = cfg.loops
-    if not same_robot and L.method in ("ring", "ringpp") and descs_a is not None:
-        raise NotImplementedError("RING seed hypotheses need loop/ring.py")
     a_ds, pose_a = _prep_side(store_a, ia, cfg)
     b_ds, pose_b = _prep_side(store_b, ib, cfg)
 
@@ -123,11 +126,30 @@ def verify_chunk(
     fine_g = voxel_grid.build(a_ds, grid_leaf, table, min_points=3, regularize="plane")
     fit_g = voxel_grid.build(a_ds, grid_leaf, table, min_points=1)
 
-    # seeds (B,): init poses mapping b-frame points -> a-frame
+    # seeds (B, S): init poses mapping b-frame points -> a-frame
+    B = ia.shape[0]
     if same_robot:
         seed = se3.between(pose_a, pose_b)
+    elif L.method in ("ring", "ringpp") and descs_a is not None:
+        if L.method == "ring":
+            sino_a, sino_b = descs_a["sino"][ia], descs_b["sino"][ib]
+        else:
+            sino_a = torch.mean(descs_a["sino_pp"][ia], dim=1)
+            sino_b = torch.mean(descs_b["sino_pp"][ib], dim=1)
+        A = sino_a.shape[-2]
+        shift = torch.round(yaw * A / np.pi).to(torch.int64)
+        yaws, xys, _ = ring.se2_hypotheses(sino_a, sino_b, shift)     # (B, 2), (B, 2, 2)
+        fwd = Pose(so3.yaw_rot(yaws), torch.cat([xys, torch.zeros_like(xys[..., :1])], dim=-1))
+        seed = se3.inverse(Pose(fwd.R.reshape(-1, 3, 3), fwd.t.reshape(-1, 3)))  # (B * 2,)
     else:
         seed = se3.inverse(Pose(so3.yaw_rot(yaw), torch.zeros_like(pose_a.t)))
+    S = seed.t.shape[0] // B
+    if S > 1:  # candidate-major: row b * S + s is candidate b's seed s
+        b_ds = pcl.PointCloud(b_ds.xyz.repeat_interleave(S, 0), b_ds.mask.repeat_interleave(S, 0))
+        coarse_g, fine_g, fit_g = (
+            voxel_grid.VoxelGrid(g.packed.repeat_interleave(S, 0), g.leaf)
+            for g in (coarse_g, fine_g, fit_g)
+        )
 
     coarse = registration.vgicp(b_ds, coarse_g, seed, iters=15, max_corr_dist=4.0)
     fine = registration.vgicp(b_ds, fine_g, coarse.pose, iters=15, max_corr_dist=1.0)
@@ -138,9 +160,15 @@ def verify_chunk(
     sub_xyz = b_ds.xyz[:, ::4]
     sub = pcl.PointCloud(sub_xyz, b_ds.mask[:, ::4] & (sub_xyz[..., 2] > L.fitness_z_min))
     fit = registration.fitness(sub, fit_g, fine.pose)
-    # fine.pose maps b-frame points into a-frame; the loop record wants
-    # b <- a
-    return se3.inverse(fine.pose), fit
+    pose = fine.pose
+    if S > 1:
+        fits = fit.reshape(B, S)
+        best = torch.argmin(fits, dim=1)       # the first of equal fitnesses
+        rows = torch.arange(B, device=best.device) * S + best
+        pose = se3.index(pose, rows)
+        fit = fits.gather(1, best[:, None])[:, 0]
+    # pose maps b-frame points into a-frame; the loop record wants b <- a
+    return se3.inverse(pose), fit
 
 
 def search_pair_loops(

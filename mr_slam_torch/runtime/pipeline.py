@@ -1,7 +1,8 @@
 """End-to-end multi-robot SLAM pipeline (port of the main path of
 `mr_slam_tpu/runtime/pipeline.py`):
 
-  scan2map odometry -> keyframe gating -> ScanContext descriptors ->
+  scan2map odometry -> keyframe gating -> place descriptors (every
+  `LoopCfg.method`: ScanContext, RING, RING++, DiSCO, M2DP, FastHistogram) ->
   batched loop retrieval + chunked VGICP verification -> per-robot-pair
   PCM -> chordal PGO
 
@@ -9,7 +10,8 @@ and the products of a finished run: the merged elevation map and its
 costmap (`build_elevation`), and the merged cloud (`compose_map`).
 
 Host Python orchestrates stage order and the small dynamic loop list;
-every heavy stage runs on the device of the input scans. Single process
+every heavy stage runs on the device `run` is given (the card unless the
+caller passes `device="cpu"`; a missing card raises). Single process
 only (the reference's multi-process loop exchange and sharded PGO are
 not ported). Each stage is a tracer span (`runtime/observability.py`);
 spans synchronize the device before they close so their wall times are
@@ -27,7 +29,7 @@ from ..frontend import keyframes as kf
 from ..frontend import odometry
 from ..geometry import se3
 from ..geometry.se3 import Pose
-from ..loop import scancontext
+from ..loop import bev, disco, fast_histogram, m2dp, ring, scancontext
 from ..ops import pointcloud as pcl
 from . import observability as obs
 from .config import SlamConfig
@@ -123,29 +125,77 @@ def run_frontend(
 
 
 def describe_one(cloud: pcl.PointCloud, cfg: SlamConfig) -> dict:
-    """Describe keyframe clouds (any leading batch). Only ScanContext,
-    the default `LoopCfg.method`, is ported."""
-    if cfg.loops.method != "scancontext":
-        raise NotImplementedError(f"loop method {cfg.loops.method!r} is not ported")
-    d = scancontext.describe(cloud)
-    return {"sc": d, "key": scancontext.ring_key(d)}
+    """Describe keyframe clouds (any leading batch) for cfg.loops.method:
+    a dict of tensors (the same keys as the reference's)."""
+    method = cfg.loops.method
+    if method == "scancontext":
+        d = scancontext.describe(cloud)
+        return {"sc": d, "key": scancontext.ring_key(d)}
+    if method == "ring":
+        norm = bev.normalize_cloud(cloud, z_min=cfg.loops.bev_z_min)
+        d = ring.describe(bev.cartesian_occupancy(norm)[..., 0, :, :])
+        return {"sino": d.sinogram, "tiring": d.tiring}
+    if method == "disco":
+        g = bev.polar_occupancy(cloud, 40, 120, z_bins=20, z_min=cfg.loops.bev_z_min)
+        d = disco.describe(g)
+        return {"sig": d.signature, "spec": d.spectrum}
+    if method == "ringpp":
+        d = ring.describe_ringpp(bev.eigen_feature_bev(cloud, 120, 120, k=8))
+        return {"sino_pp": d.sinograms, "tiring_pp": d.tirings}
+    if method == "m2dp":
+        return {"m2dp": m2dp.describe(cloud)}
+    if method == "fasthist":
+        return {"hist": fast_histogram.describe(cloud)}
+    raise ValueError(f"unknown loop method {method}")
 
 
 def compute_descriptors(store: kf.KeyframeStore, cfg: SlamConfig) -> dict:
     """Batch-describe every keyframe slot: a dict of stacked tensors. Runs
-    in f32 (the reference's bf16 opt-in for descriptors is not taken)."""
+    in f32 (the reference's bf16 opt-in for descriptors is not taken);
+    the bulky steps (Radon, k-NN) chunk over keyframes inside."""
     return describe_one(pcl.PointCloud(store.xyz, store.mask), cfg)
+
+
+# DiSCO's relative yaw inverse-transforms one (40, 120) complex surface
+# per (query, entry) pair; queries are taken this many at a time (16 x
+# 256 entries x 4800 bins x 8 B = 157 MiB)
+YAW_QUERY_CHUNK = 16
 
 
 def _descriptor_distances(desc_q: dict, qi, desc_db: dict, cfg: SlamConfig):
     """Distances of query keyframes `qi` (an index or a (Q,) tensor)
     against a database, plus a yaw guess per database entry: ((..., D),
     (..., D))."""
-    if cfg.loops.method != "scancontext":
-        raise NotImplementedError(f"loop method {cfg.loops.method!r} is not ported")
-    d, shift = scancontext.distance(desc_q["sc"][qi], desc_db["sc"])
-    n_sectors = desc_db["sc"].shape[-1]
-    return d, shift.to(torch.float32) * (2 * np.pi / n_sectors)
+    m = cfg.loops.method
+    if m == "scancontext":
+        d, shift = scancontext.distance(desc_q["sc"][qi], desc_db["sc"])
+        n_sectors = desc_db["sc"].shape[-1]
+        return d, shift.to(torch.float32) * (2 * np.pi / n_sectors)
+    if m == "ring":
+        d, shift = ring.correlate(desc_q["tiring"][qi], desc_db["tiring"])
+        return d, ring.shift_to_yaw(shift, desc_db["tiring"].shape[-2])
+    if m == "ringpp":
+        d, shift = ring.correlate_multichannel(desc_q["tiring_pp"][qi], desc_db["tiring_pp"])
+        return d, ring.shift_to_yaw(shift, desc_db["tiring_pp"].shape[-2])
+    if m == "disco":
+        sig = desc_db["sig"]
+        d = disco.distance(desc_q["sig"][qi], sig,
+                           torch.ones(sig.shape[0], dtype=torch.bool, device=sig.device))
+        q_spec = desc_q["spec"][qi]
+        flat = q_spec.reshape(-1, *q_spec.shape[-2:])
+        yaws = torch.cat([
+            disco.relative_yaw(flat[s:s + YAW_QUERY_CHUNK, None], desc_db["spec"])[0]
+            for s in range(0, flat.shape[0], YAW_QUERY_CHUNK)
+        ])
+        return d, yaws.reshape(d.shape)
+    if m == "m2dp":
+        diff = desc_db["m2dp"] - desc_q["m2dp"][qi][..., None, :]
+        d = torch.sqrt(torch.sum(diff * diff, dim=-1))
+        return d, torch.zeros_like(d)
+    if m == "fasthist":
+        d = fast_histogram.distance(desc_q["hist"][qi], desc_db["hist"])
+        return d, torch.zeros_like(d)
+    raise ValueError(m)
 
 
 # --------------------------------------------------------------------------
@@ -200,15 +250,22 @@ def run(
     scans_per_robot: list[pcl.PointCloud],
     cfg: SlamConfig,
     origins: list[Pose] | None = None,
+    device="cuda",
 ) -> SlamResult:
     """Full multi-robot SLAM: per-robot front-ends, cross/self loop
-    search, verification, PCM, chordal PGO, on the device of the scans.
-    When `origins` is None, overlay `init_pose`s are used."""
+    search, verification, PCM, chordal PGO, on `device` (the card by
+    default; without CUDA that raises, pass device="cpu"). Scans and
+    origins are moved there. When `origins` is None, overlay
+    `init_pose`s are used."""
+    from .online import resolve_device
+
+    dev = resolve_device(device)
     robots = []
     for r, scans in enumerate(scans_per_robot):
+        scans = pcl.PointCloud(scans.xyz.to(dev), scans.mask.to(dev))
         origin = origins[r] if origins else cfg.init_pose(r)
         if origin is not None:
-            origin = origin.to(scans.xyz.device)
+            origin = origin.to(dev)
         with obs.tracer.span(f"robot{r}"):  # -> span "robot<r>.frontend"
             robots.append(run_frontend(scans, cfg.for_robot(r), origin))
     return run_backend(robots, cfg)

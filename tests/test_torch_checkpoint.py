@@ -15,7 +15,11 @@ One robot with the config of `tests/test_session_resume.py` (GEM on),
     `load_session` with every leaf equal, and the reference continues it
     to its own uninterrupted keyframe count;
   * `save` / `restore` round-trip a tree with host-number leaves and
-    raise on a shape mismatch or a missing leaf."""
+    raise on a shape mismatch or a missing leaf;
+  * DiSCO and RING++ sessions (complex64 spectra; per-channel sinograms)
+    cross in both directions with every store leaf equal, dtypes
+    included."""
+import dataclasses
 import os
 
 import jax
@@ -194,3 +198,34 @@ def jax_odometry_state(ocfg):
     from mr_slam_tpu.frontend import odometry as jodo
 
     return jodo.init(jodo.OdometryConfig(table_size=ocfg.table_size))
+
+
+@pytest.mark.parametrize("method", ["disco", "ringpp"])
+def test_descriptor_sessions_cross_both_ways(stream, tmp_path, method):
+    traj, frames = stream
+
+    def cfg(m):
+        c = config(m)
+        return c.replace(loops=dataclasses.replace(c.loops, method=method))
+
+    port = tonline.OnlineSlam(cfg(tcfg), device="cpu")
+    port.register_robot(0, tse3.index(traj, 0))
+    ref = jonline.OnlineSlam(cfg(jcfg))
+    ref.register_robot(0, pose_to_jax(tse3.index(traj, 0)))
+    feed(port, frames[:CUT])
+    feed(ref, frames[:CUT], jax_side=True)
+    tckpt.save_session(port, os.path.join(tmp_path, "port.npz"))
+    jckpt.save_session(ref, os.path.join(tmp_path, "ref.npz"))
+    into_ref = jckpt.load_session(os.path.join(tmp_path, "port.npz"))
+    into_port = tckpt.load_session(os.path.join(tmp_path, "ref.npz"), device="cpu")
+    assert into_port.kf_counts == port.kf_counts and port.kf_counts[0] >= 2
+    for src, dst in ((port.mstore, into_ref.mstore), (into_port.mstore, ref.mstore)):
+        pl = [tckpt.to_numpy(v) for _, v in tckpt.flatten(src)]
+        jl = [np.asarray(v) for v in jax.tree_util.tree_leaves(dst)]
+        assert len(pl) == len(jl)
+        for i, (a, b) in enumerate(zip(pl, jl)):
+            assert a.dtype == b.dtype, i
+            np.testing.assert_array_equal(a, b, err_msg=f"mstore.{i}")
+    if method == "disco":
+        assert into_port.mstore.descriptors["spec"].dtype == torch.complex64
+        assert np.iscomplexobj(np.asarray(into_ref.mstore.descriptors["spec"]))

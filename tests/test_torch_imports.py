@@ -38,6 +38,7 @@ def test_port_imports_without_jax():
     walked = out.stdout.split()
     assert int(walked[0]) >= 30  # every slice module was walked
     assert set(STREAMING_MODULES) <= set(walked[1:])
+    assert set(PLACE_RECOGNITION_MODULES) <= set(walked[1:])
 
 
 # the streaming slice: session, store, TF, checkpoint, artifacts, replay
@@ -47,6 +48,14 @@ STREAMING_MODULES = [
     "mr_slam_torch.runtime.persistence", "mr_slam_torch.eval.g2o", "mr_slam_torch.eval.pcd",
     "mr_slam_torch.datasets.loaders", "mr_slam_torch.datasets.replay",
     "mr_slam_torch.datasets.sequence_artifact",
+]
+
+
+# place recognition: the descriptor families, the network, the harness
+PLACE_RECOGNITION_MODULES = [
+    "mr_slam_torch.loop.ring", "mr_slam_torch.loop.disco", "mr_slam_torch.loop.disco_net",
+    "mr_slam_torch.loop.m2dp", "mr_slam_torch.loop.fast_histogram",
+    "mr_slam_torch.eval.recall_harness",
 ]
 
 
@@ -88,7 +97,8 @@ def test_native_sources_are_the_ports_own():
 
 
 def test_port_reads_no_file_of_the_reference():
-    """The native solver is built from the port's own source, and no
+    """The native solver and the descriptor kd-tree are built from the
+    port's own copies of the reference's sources, and no
     string of the port outside a docstring names the reference package
     (a path under it, or the package as a path component)."""
     import ast
@@ -96,8 +106,9 @@ def test_port_reads_no_file_of_the_reference():
     from mr_slam_torch import native
 
     pkg = ROOT / "mr_slam_torch"
-    assert native._SRC.resolve().is_relative_to(pkg), native._SRC
-    assert native._SRC.read_bytes() == (ROOT / "mr_slam_tpu" / "native" / "maxclique.cpp").read_bytes()
+    for src, name in ((native._SRC, "maxclique.cpp"), (native._KDTREE_SRC, "kdtree.cpp")):
+        assert src.resolve().is_relative_to(pkg), src
+        assert src.read_bytes() == (ROOT / "mr_slam_tpu" / "native" / name).read_bytes()
     bad = []
     files = sorted(pkg.rglob("*.py"))
     for path in files:

@@ -119,3 +119,41 @@ def test_search_pair_loops_same_accepted_set(circle_store):
     jdescs = jpipe.compute_descriptors(jstore, JCFG)
     jloops = jls.search_pair_loops(jstore, jdescs, jstore, jdescs, JCFG, same_robot=True)
     assert {(l["kf_a"], l["kf_b"]) for l in loops} == {(l["kf_a"], l["kf_b"]) for l in jloops}
+
+
+RING_KW = dict(CFG_KW["loops"], method="ring", bev_z_min=0.3)
+RING_CFG = SlamConfig(keyframes=CFG.keyframes, loops=LoopCfg(**RING_KW))
+RING_JCFG = JSlamConfig(keyframes=JCFG.keyframes, loops=JLoopCfg(**RING_KW))
+
+
+def test_verify_chunk_ring_seeds_match_reference(circle_store):
+    """Cross-robot RING seeding: both SE(2) hypotheses per candidate fold
+    into a batch of 2 x CHUNK registrations, the lower fitness wins. The
+    revisit pairs of the circle (and padding) seen as two robots' stores,
+    with the descriptor yaw guesses; same bounds as the yaw-seeded
+    check."""
+    store, jstore = circle_store
+    descs = tpipe.compute_descriptors(store, RING_CFG)
+    jdescs = jpipe.compute_descriptors(jstore, RING_JCFG)
+    K = int(store.count)
+    pairs = [(K - 1, 1), (K - 2, 0), (K - 1, 0), (K - 3, 1)]
+    pairs = (pairs + [(0, 0)] * tls.CHUNK)[: tls.CHUNK]
+    ia = torch.tensor([p[0] for p in pairs])
+    ib = torch.tensor([p[1] for p in pairs])
+    _, yaw_all = tpipe._descriptor_distances(descs, ia, descs, RING_CFG)
+    yaw = yaw_all.gather(1, ib[:, None])[:, 0]
+    for q in range(tls.CHUNK):
+        _, jyaw = jpipe._descriptor_distances(jdescs, int(ia[q]), jdescs, RING_JCFG)
+        assert float(yaw[q]) == float(np.asarray(jyaw)[int(ib[q])])
+    rel, fit = tls.verify_chunk(store, store, ia, ib, yaw, RING_CFG, same_robot=False,
+                                descs_a=descs, descs_b=descs)
+    jrel, jfit = jls.verify_chunk(jstore, jstore, to_jax(ia.int()), to_jax(ib.int()), to_jax(yaw),
+                                  RING_JCFG, False, descs_a=jdescs, descs_b=jdescs)
+    gate = RING_CFG.loops.fitness_thresh
+    np.testing.assert_array_equal(fit.numpy() < gate, np.asarray(jfit) < gate)
+    np.testing.assert_allclose(fit.numpy(), np.asarray(jfit), atol=0.05)
+    accepted = fit.numpy() < gate
+    assert accepted[:4].sum() >= 2, fit
+    np.testing.assert_allclose(rel.t.numpy()[accepted], np.asarray(jrel.t)[accepted], atol=0.01)
+    for a, b in zip(rel.R.numpy()[accepted], np.asarray(jrel.R)[accepted]):
+        assert rot_err_deg(a, b) < 0.1

@@ -196,6 +196,64 @@ def test_global_elevation_matches_reference_on_shared_state(sessions):
 
 
 # --------------------------------------------------------------------------
+# every loop method through the session
+# --------------------------------------------------------------------------
+
+METHOD_GATES = dict(ring=0.04, ringpp=0.05, disco=0.4, m2dp=0.2, fasthist=0.01)
+
+
+@pytest.mark.parametrize("method", list(METHOD_GATES))
+def test_session_with_each_loop_method(method):
+    """The stream of `sessions` (GEM off) with `LoopCfg.method` set
+    (RING / RING++ cross-robot candidates verify from both SE(2) seeds):
+    the same keyframes and nodes as the reference's session, the stored
+    descriptors within the descriptor tests' bounds (DiSCO's spectra
+    complex64 in both), >= 1 accepted loop in both, keyframe ATE within
+    10 % + 2 cm (RING++: 5 cm) and < 0.3 m. Loop sets are not compared:
+    among the near-equal descriptor distances of revisits on a small
+    circle, rounding can pick another top-1 candidate, a true loop either
+    way (the ATE bound holds them)."""
+    from mr_slam_tpu.eval import metrics as jmet
+
+    def cfg(m):
+        c = config(m)
+        return c.replace(loops=dataclasses.replace(c.loops, method=method,
+                                                   dist_thresh=METHOD_GATES[method], bev_z_min=0.3))
+
+    n_robots = 2
+    trajs, frames = stream(N, 0.3, n_robots)
+    port = tonline.OnlineSlam(cfg(tcfg), device="cpu")
+    ref = jonline.OnlineSlam(cfg(jcfg))
+    for r, t in enumerate(trajs):
+        port.register_robot(r, tse3.index(t, 0))
+        ref.register_robot(r, pose_to_jax(tse3.index(t, 0)))
+    for stamp, r, cloud in frames:
+        port.add_frame(r, cloud, stamp=stamp)
+        ref.add_frame(r, cloud_to_jax(cloud), stamp=stamp)
+    pres, rres = port.result(), ref.result()
+    assert port.kf_counts == {r: int(c) for r, c in enumerate(ref.mstore.stores.count)}
+    assert port.node_of == ref.node_of
+    tol = dict(ringpp=5e-2, m2dp=5e-4, disco=1e-4).get(method, 1e-5)
+    for name, got in port.mstore.descriptors.items():
+        want = np.asarray(ref.mstore.descriptors[name])
+        assert str(got.dtype).replace("torch.", "") == str(want.dtype), name
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=tol * max(np.abs(want).max(), 1e-30), err_msg=name)
+    assert pres.loops and rres.loops, method
+    # RING++'s descriptors part by up to 5e-2 (`test_torch_descriptors`),
+    # enough to swap a retrieved candidate: its band is 10 % + 5 cm
+    band = 0.05 if method == "ringpp" else 0.02
+    for r in range(n_robots):
+        K = port.kf_counts[r]
+        kf_frames = np.rint((pres.robots[r].store.stamps[:K].numpy() - 0.03 * r) / 0.1)
+        true = tse3.index(trajs[r], torch.as_tensor(kf_frames.astype(np.int64)))
+        a_port = float(tmet.ate(pres.optimized_trajectory(r), true).rmse)
+        a_ref = float(jmet.ate(rres.optimized_trajectory(r), pose_to_jax(true)).rmse)
+        assert abs(a_port - a_ref) <= 0.1 * a_ref + band, (r, a_port, a_ref)
+        assert a_port < 0.3
+
+
+# --------------------------------------------------------------------------
 # scheduler: two-rate shedding and the deadline monitor
 # --------------------------------------------------------------------------
 

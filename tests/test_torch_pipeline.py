@@ -53,7 +53,7 @@ def runs():
     scans = [jitter(make_scans(world, t, N, seed=r, n_rings=16, n_azimuth=512), 0.002, 10 + r)
              for r, t in enumerate(trajs)]
     origins = [tse3.index(t, 0) for t in trajs]
-    port = tpipe.run(scans, config(tcfg), origins=origins)
+    port = tpipe.run(scans, config(tcfg), origins=origins, device="cpu")
     ref = jpipe.run([cloud_to_jax(s) for s in scans], config(jcfg),
                     origins=[pose_to_jax(o) for o in origins])
     return trajs, port, ref

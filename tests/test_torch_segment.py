@@ -47,6 +47,16 @@ def test_sorted_index_put_sums_in_index_order(width):
     assert torch.equal(out, ref)
 
 
+def test_count_equals_bincount():
+    """Integer counts (the M2DP and range-histogram bins) over kept
+    entries only."""
+    idx, _, n = colliding(5)
+    keep = torch.from_numpy(np.random.default_rng(6).random(len(idx)) < 0.7)
+    got = segment.count(n, idx, keep)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.bincount(idx.numpy()[keep.numpy()], minlength=n))
+
+
 @pytest.mark.parametrize("keep_frac", [1.0, 0.6])
 def test_padded_plan_matches_index_add(keep_frac):
     idx, vals, n = colliding(3, m=4096, n=100, width=(6,))

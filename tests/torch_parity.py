@@ -216,3 +216,52 @@ def online_reference():
     )
     inter = sum(l["robot_a"] != l["robot_b"] for l in res.loops)
     return ates, inter, len(res.loops)
+
+
+# --------------------------------------------------------------------------
+# the references behind `chip_smoke.JAX_REF_RING_*` and `JAX_REF_RECALL`
+# --------------------------------------------------------------------------
+
+
+def ring_reference():
+    """Run the reference's `pipeline.run` (JAX on the CPU) on the scans of
+    `chip_smoke.py` phase 5 under `chip_smoke.ring_config`. Returns
+    (per-robot keyframe ATE in m, accepted inter-robot loops). Run from
+    the repository root:
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import ring_reference; \\
+            print(ring_reference())"
+    """
+    import chip_smoke
+    from mr_slam_tpu.eval import metrics as jmet
+    from mr_slam_tpu.runtime import config as jcfg
+    from mr_slam_tpu.runtime import pipeline as jpipe
+
+    trajs, scans, cfg = chip_smoke.scenario()
+    rcfg = jcfg.SlamConfig.from_json(chip_smoke.ring_config(cfg).to_json())
+    res = jpipe.run([cloud_to_jax(s) for s in scans], rcfg,
+                    origins=[pose_to_jax(tse3.index(t, 0)) for t in trajs])
+    ates = tuple(
+        float(jmet.ate(res.optimized_trajectory(r), pose_to_jax(
+            tse3.index(trajs[r], torch.as_tensor(res.robots[r].kf_frame_idx)))).rmse)
+        for r in range(len(trajs)))
+    return ates, sum(l["robot_a"] != l["robot_b"] for l in res.loops)
+
+
+def recall_reference():
+    """recall@1 of the reference's `recall_harness.evaluate_method` (JAX on
+    the CPU) for every method on `chip_smoke.recall_set()`, with the
+    protocol of `chip_smoke.py` phase 8. Run from the repository root:
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import recall_reference; \\
+            print(recall_reference())"
+    """
+    import chip_smoke
+    from mr_slam_tpu.eval import recall_harness as jrh
+
+    clouds, positions = chip_smoke.recall_set()
+    jc, jp = cloud_to_jax(clouds), to_jax(positions)
+    return {m: float(jrh.evaluate_method(m, jc, jp, radius=chip_smoke.RECALL_RADIUS,
+                                         min_separation=chip_smoke.RECALL_MIN_SEP,
+                                         max_n=chip_smoke.RECALL_MAX_N).recall_at_n[0])
+            for m in chip_smoke.DESC_METHODS}
