@@ -105,6 +105,28 @@ Phases (each prints its own lines; any failure exits non-zero):
                the first DISCO_FRAMES frames per robot of phase 7's
                stream, saved and loaded at the midpoint, bit-identical to
                the uninterrupted one, its complex64 spectra included.
+  9. lio     — the other front-ends on the card, at 32x1024 rays with
+               phase 5's robots, frames, noise seeds and loop gate on the
+               reference undistortion tests' pattern (LIO_REST frames at
+               rest, then a radius-12 ring road; LIO_* and FEAT_* say
+               which road and why), IMU packets of 20 samples a sweep
+               (200 Hz), scans sheared by their sweep's motion. Checks:
+               `pipeline.run` with every robot on the LIO front-end, IMU
+               packets and per-point times (the VGICP kernel launched, >= 1 inter-robot loop, keyframe ATE < 1 m
+               and within 1.25 x the JAX reference + 0.05 m, a second run
+               bit-identical; frames/s, peak memory); one LIO frame stage
+               by stage (device kernels, host launch calls and ms of
+               propagate, undistort, the downsamples, update and its
+               24x24 solves, insert; `lio.step` makes no host sync);
+               scan2map `pipeline.run` with per-point times on the
+               start-sheared scans (odometry ATE band, and below the same
+               run without times); an `OnlineSlam` session of LIO robots fed
+               by `synthetic_bag(with_imu=True)` through `replay` (ATE
+               band against the reference session, <= LIO_SYNC_BUDGET
+               host syncs on a plain LIO frame, a midpoint save / load
+               finishing bit-identically); A-LOAM `feature_odometry.run`
+               over range images of robot 0's road (final error < 0.5 m,
+               ATE band).
 
 Every kernel check of phases 3, 4, 6 and 8 prints, for its shape, the
 device time (`graph_ms`: calls captured in a CUDA graph, replays timed
@@ -114,8 +136,9 @@ operations over the f32 peak, whichever is larger) with the device
 time's share of it.
 
 The last three lines are the kernels' JSON record (the launch counts of
-the main path's runs of phases 5 and 6, the online session's of phase 7
-and phase 8's RING run, offset verify and DiSCO session; the times and
+the main path's runs of phases 5 and 6, the online session's of phase 7,
+phase 8's RING run, offset verify and DiSCO session, and phase 9's LIO
+run and LIO session; the times and
 bound of
 each kernel at the main path's shape: VGICP's fine/slot/center/pose
 call at B = 8, the stencil at the 600^2 map grid; the largest error of
@@ -197,7 +220,6 @@ def scenario():
     from mr_slam_torch.datasets import synthetic
     from mr_slam_torch.geometry import se3
     from mr_slam_torch.ops import pointcloud as pcl
-    from mr_slam_torch.runtime.config import LoopCfg, SlamConfig
 
     world = synthetic.default_world(WORLD_SEED)
     trajs, scans = [], []
@@ -216,8 +238,15 @@ def scenario():
         trajs.append(traj)
         scans.append(pcl.PointCloud(torch.stack([c.xyz for c in clouds]),
                                     torch.stack([c.mask for c in clouds])))
-    cfg = SlamConfig(n_robots=N_ROBOTS, loops=LoopCfg(dist_thresh=DESC_GATE, min_separation=6))
-    return trajs, scans, cfg
+    return trajs, scans, smoke_config()
+
+
+def smoke_config():
+    """Phase 5's `SlamConfig`: the defaults for N_ROBOTS robots but the
+    loop gates (see DESC_GATE)."""
+    from mr_slam_torch.runtime.config import LoopCfg, SlamConfig
+
+    return SlamConfig(n_robots=N_ROBOTS, loops=LoopCfg(dist_thresh=DESC_GATE, min_separation=6))
 
 
 def phase_card():
@@ -959,7 +988,8 @@ def count_frame_syncs(sess, frames):
         if f.robot not in sess.robots:
             sess.register_robot(f.robot, f.origin)
         before = state()
-        sites = count_syncs(lambda: sess.add_frame(f.robot, f.scan, stamp=f.stamp))
+        sites = count_syncs(lambda: sess.add_frame(f.robot, f.scan, stamp=f.stamp, times=f.times,
+                                                   imu=f.imu))
         out.append((sites, before != state()))
     return out
 
@@ -1143,14 +1173,17 @@ def phase_online(dev, trajs, host_scans, cfg):
 DESC_METHODS = ("scancontext", "ring", "ringpp", "disco", "m2dp", "fasthist")
 # card against the port's CPU path on the same keyframes: the fraction of
 # descriptor entries within DESC_CLOSE of the largest entry must be at
-# least DESC_CLOSE_FRAC. The card's atan2 / sqrt / sin / cos round
-# differently from the CPU's, which moves a point across a bin edge now
-# and then (one occupancy or max-height cell). RING++ is held instead to
-# RINGPP_MAX_ERR of its largest entry, the bound of its CPU parity tests
-# against the reference: its k-NN distances come from another library's
-# matmul and its eigen features round differently on the card, and one
-# changed BEV cell moves every ray through it.
-DESC_CLOSE, DESC_CLOSE_FRAC, RINGPP_MAX_ERR = 1e-4, 0.99, 5e-2
+# least DESC_CLOSE_FRAC, for every method. The card's atan2 / sqrt / sin /
+# cos round differently from the CPU's, which moves a point across a bin
+# edge now and then (one occupancy or max-height cell). RING++'s k-NN
+# forms its distances as the same float32 FMA chain on both devices
+# (`pointcloud._cross`): its neighbour lists must be equal on every valid
+# point (`ringpp_sources`). Its eigen features go through arccos / cos /
+# pow / log, which round differently on the card (ROADMAP Queue 3,
+# inherent): 97.910 % of its BEV cells bit-equal, max 0.0154 apart, and
+# 96.490 % of its entries within 1e-4 (max 6.59e-3, on an NVIDIA H100),
+# so RING++ is held to RINGPP_CLOSE_FRAC, the measured fraction.
+DESC_CLOSE, DESC_CLOSE_FRAC, RINGPP_CLOSE_FRAC = 1e-4, 0.99, 0.96489
 DESC_CPU_KF = 16  # keyframes of robot 0 described on the CPU as well
 # RING gate of the RING-seeded pipeline.run: on phase 5's keyframes (the
 # JAX reference's descriptors) same-place inter-robot pairs lie at cosine
@@ -1304,16 +1337,45 @@ def descriptors_on_stores(res, cfg, dev):
             f"store {sum(syncs.values())} {dict(syncs)}; two runs "
             f"bit-identical: {same}; vs CPU on {k} keyframes: max err {err:.3g} of the largest "
             f"entry, {100 * worst:.3f} % of entries within {DESC_CLOSE:g}")
+        frac = DESC_CLOSE_FRAC
+        if method == "ringpp":
+            ringpp_sources(pcl.PointCloud(s0.xyz[:k], s0.mask[:k]))
+            frac = RINGPP_CLOSE_FRAC
         if not same:
             raise AssertionError(f"{method}: two compute_descriptors runs differ on the card")
-        if method == "ringpp":
-            if not err <= RINGPP_MAX_ERR:
-                raise AssertionError(f"ringpp: max err {err} beyond {RINGPP_MAX_ERR} of the CPU path")
-        elif not worst >= DESC_CLOSE_FRAC:
+        if not worst >= frac:
             raise AssertionError(f"{method}: only {100 * worst:.3f} % of entries match the CPU path")
         out[method] = dict(ms_per_kf=1e3 * wall / slots, peak_mib=peak / 2**20, err=err,
-                           syncs=sum(syncs.values()))
+                           syncs=sum(syncs.values()), close=worst)
     return out
+
+
+def ringpp_sources(clouds):
+    """Where RING++ on the card parts from the CPU path, on the same
+    keyframe clouds: the k-NN (distances and neighbour lists, which must
+    be equal on every valid point), the covariances, and the
+    eigen-feature BEV (cells bit-equal, largest difference)."""
+    from mr_slam_torch.loop import bev
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    card = pcl.PointCloud(clouds.xyz.contiguous(), clouds.mask.contiguous())
+    host = pcl.PointCloud(card.xyz.cpu(), card.mask.cpu())
+    d, idx = pcl.knn(card.xyz, card, 8)
+    d_h, idx_h = pcl.knn(host.xyz, host, 8)
+    m = host.mask
+    same_nn = float((idx.cpu() == idx_h).all(dim=-1)[m].float().mean())
+    same_d = float((d.cpu() == d_h).all(dim=-1)[m].float().mean())
+    _, cov, _ = pcl.covariances_knn(card, 8)
+    _, cov_h, _ = pcl.covariances_knn(host, 8)
+    same_cov = float((cov.cpu() == cov_h).flatten(-2).all(dim=-1)[m].float().mean())
+    fb, fb_h = bev.eigen_feature_bev(card, 120, 120, k=8).cpu(), bev.eigen_feature_bev(host, 120, 120, k=8)
+    log(f"[desc] ringpp sources: k-NN neighbour lists equal on {100 * same_nn:.4f} % of valid "
+        f"points, distances on {100 * same_d:.4f} %, covariances bit-equal on {100 * same_cov:.4f} %; "
+        f"eigen-feature BEV cells bit-equal {100 * float((fb == fb_h).float().mean()):.3f} %, "
+        f"max abs diff {float((fb - fb_h).abs().max()):.3g}")
+    if same_nn < 1.0:
+        raise AssertionError(f"ringpp: k-NN neighbours differ from the CPU path on "
+                             f"{100 * (1 - same_nn):.4f} % of points")
 
 
 def ring_run(dev, trajs, host_scans, cfg):
@@ -1513,6 +1575,525 @@ def phase_descriptors(dev, res, trajs, host_scans, cfg):
     return (ring_launches + offset_launches + disco_launches, record16,
             dict(desc=desc, ring=ring, recall=recall))
 
+# --------------------------------------------------------------------------
+# phase 9: the other front-ends — FAST-LIO-style IEKF, motion compensation,
+# A-LOAM feature odometry
+# --------------------------------------------------------------------------
+
+# Phase 9's road: phase 5's three robots x 40 frames at 32x1024 rays,
+# but on the scenario of the reference's own undistortion tests
+# (`tests/test_undistortion.py`: a robot at rest, then a radius-12 circle
+# at 0.02 laps a frame, 1.5 m and 0.126 rad a sweep), in the numpy world
+# LIO_WORLD whose radius-12 road keeps 6 m from every box; the robots
+# start a third of the circle apart, so each passes the others' starts.
+# On phase 5's road (1.9 m a frame) the reference's own LIO diverges
+# (odometry ATE 20.5 / 13.1 / 14.8 m, keyframe ATE 12.3 / 12.8 / 9.8 m)
+# and so does its scan2map (PERF.md section 6).
+LIO_WORLD, LIO_REST, LIO_FRAMES = 42, 4, N_FRAMES
+LIO_RADIUS, LIO_LAPS = 12.0, 0.72
+LIO_IMU_SUB = 20   # IMU samples per 10 Hz sweep: 200 Hz, FAST-LIO2's Livox rate
+LIO_PERIOD = 0.1
+LIO_MODEL_FOV = (15.0, -25.0)  # the raycaster's beams
+# scan2map with point times on this road is chaotic: moving every
+# coordinate of the scans by +-1 ulp sends robot 2 1.0-1.8 m off at frame
+# 12 of the 28-frame road in some copies, in the reference, on the CPU
+# and on the card alike (`s2m_chaos.py`, PERF.md section 6, ROADMAP
+# Queue 3). Its gate therefore reads the median odometry ATE over
+# the scans as given and S2M_ULP_COPIES copies moved by +-1 ulp, against
+# the reference's median over the same inputs.
+S2M_ULP_COPIES = 4
+# JAX on the CPU over the identical inputs (`tests/torch_parity.lio_reference`):
+# keyframe ATE (m) per robot of the LIO `pipeline.run` and its inter-robot
+# loops; the odometry ATE of the scan2map run with point times and
+# without; the LIO session's keyframe ATE; feature odometry's ATE and
+# final error (m).
+JAX_REF_LIO_ATE = (0.12749552726745605, 0.1421770304441452, 0.14339397847652435)
+JAX_REF_LIO_LOOPS = 27
+JAX_REF_S2M_ATE = (  # (per copy and robot, median per robot)
+    ((0.38612150747641794, 0.118912966159406, 0.08862403296377583),
+     (0.2075435585298482, 0.08994389877337564, 0.14482026568661432),
+     (0.2354303852931431, 0.08098429640013642, 0.16220277594811464),
+     (0.16798058451930006, 0.08057774155600676, 0.11136024052872373),
+     (0.16302929647540787, 0.17300036488530623, 0.08839276996928949)),
+    (0.2075435585298482, 0.08994389877337564, 0.11136024052872373))
+JAX_REF_S2M_RAW_ATE = (0.4495162410712704, 0.4625811676012545, 0.4904919726500881)
+JAX_REF_LIO_ONLINE_ATE = (0.04167761653661728, 0.05357494577765465, 0.05686422437429428)
+JAX_REF_FEAT = (0.061212746889096774, 0.08646699786186218)
+LIO_SYNC_BUDGET = 1  # the keyframe gate (GEM off in the session)
+# Feature odometry: robot 0's road at the reference test's pace and length
+# (`tests/test_feature_odometry.py`: 12 frames, ~0.85 m a frame). On this
+# world at 32x1024 the reference's own feature odometry loses track after
+# 14-21 frames at 0.7-2 m a frame (ROADMAP Queue 3), so the phase runs 12.
+FEAT_FRAMES, FEAT_LAPS = 12, 0.065
+
+
+def lio_trajectories():
+    """Phase 9's robots: LIO_REST frames at rest, then the radius-LIO_RADIUS
+    circle."""
+    import torch
+
+    from mr_slam_torch.datasets import synthetic
+    from mr_slam_torch.geometry.se3 import Pose
+
+    out = []
+    for r in range(N_ROBOTS):
+        c = synthetic.circle_trajectory(LIO_FRAMES - LIO_REST, radius=LIO_RADIUS, laps=LIO_LAPS,
+                                        phase=2 * math.pi * r / 3)
+        out.append(Pose(torch.cat([c.R[:1].expand(LIO_REST, 3, 3), c.R]),
+                        torch.cat([c.t[:1].expand(LIO_REST, 3), c.t])))
+    return out
+
+
+def shear_to_end(cloud, rel, t_rel, period=LIO_PERIOD):
+    """A sweep that ENDS at the scan's pose (FAST-LIO's stamping): the
+    point captured at fraction s of the sweep is recorded from the pose
+    slerped between the previous frame and this one, p_rec = R(s)^T
+    (X_end p + p_end - p(s)) under `rel` (previous frame <- this one),
+    the continuous motion `imu_for_trajectory` integrates."""
+    import torch
+
+    from mr_slam_torch.geometry import so3
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    xi = so3.log(rel.R)
+    s = torch.clamp(t_rel / period, 0.0, 1.0)
+    R_rest = so3.exp((1.0 - s)[:, None] * xi)
+    t_rest = torch.einsum("nij,j->ni", so3.exp(-s[:, None] * xi), rel.t) * (1.0 - s)[:, None]
+    return pcl.park(pcl.PointCloud(torch.einsum("nij,nj->ni", R_rest, cloud.xyz) + t_rest,
+                                   cloud.mask))
+
+
+def lio_scenario(world_seed=None, trajs=None):
+    """The phase-9 inputs on the host (robot r's noise from seed r; the
+    road is `lio_trajectories()` in world LIO_WORLD unless `trajs` and
+    `world_seed` say otherwise): per robot the trajectory, the IMU
+    packets (T-1, LIO_IMU_SUB), the LIO scans sheared to their sweep end
+    with per-point times from `preprocess.relative_times`, and the
+    scan2map scans sheared from their sweep start by the motion the
+    constant-velocity model predicts (`synthetic.shear_scan`), with the
+    times it returns."""
+    import torch
+
+    from mr_slam_torch.datasets import synthetic
+    from mr_slam_torch.frontend import preprocess
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    world = synthetic.default_world(LIO_WORLD if world_seed is None else world_seed)
+    model = preprocess.LidarModel(RINGS, *LIO_MODEL_FOV, scan_period=LIO_PERIOD)
+    up = torch.tensor([0.0, 0.0, 0.8])
+    trajs = lio_trajectories() if trajs is None else trajs
+    sc = dict(trajs=trajs, imus=[], lio=[], lio_times=[], s2m=[], s2m_times=[])
+    for r, traj in enumerate(trajs):
+        n = traj.t.shape[0]
+        rng = np.random.default_rng(r)
+        rel = se3.between(se3.index(traj, slice(0, n - 1)), se3.index(traj, slice(1, n)))
+        lio, lio_t, s2m, s2m_t = [], [], [], []
+        for i in range(n):
+            xyz, _, hit = synthetic.scan(world, se3.index(traj, i), n_rings=RINGS, n_azimuth=AZIMUTH,
+                                         noise=0.01, rng=rng)
+            c = synthetic.scan_to_cloud(xyz, hit)
+            t = preprocess.relative_times(c.xyz - up, model, start_azimuth=0.0)
+            if i == 0:
+                lio.append(c)
+                lio_t.append(torch.full_like(t, 0.999 * LIO_PERIOD))
+            else:
+                lio.append(shear_to_end(c, se3.index(rel, i - 1), t))
+                lio_t.append(t)
+            sh, st = synthetic.shear_scan(c, se3.index(rel, max(i - 2, 0)), LIO_PERIOD)
+            s2m.append(sh)
+            s2m_t.append(st)
+
+        def stack(cs):
+            return pcl.PointCloud(torch.stack([x.xyz for x in cs]), torch.stack([x.mask for x in cs]))
+
+        sc["lio"].append(stack(lio))
+        sc["s2m"].append(stack(s2m))
+        sc["lio_times"].append(torch.stack(lio_t))
+        sc["s2m_times"].append(torch.stack(s2m_t))
+        sc["imus"].append(synthetic.imu_for_trajectory(traj, LIO_PERIOD, n_sub=LIO_IMU_SUB))
+    return sc
+
+
+def lio_config(cfg):
+    """Phase 5's config with every robot on the LIO front-end (the
+    `LioConfig` defaults: scan capacity 4096, inserts of 16384, 2^17
+    table rows)."""
+    import dataclasses
+
+    return cfg.replace(odometry=dataclasses.replace(cfg.odometry, frontend="lio"))
+
+
+def range_images(scans, dev):
+    """(T, RINGS, AZIMUTH, 3) body-frame range images and hits of a
+    stacked scan sequence, binned in the sensor frame."""
+    import torch
+
+    from mr_slam_torch.frontend import preprocess
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    model = preprocess.LidarModel(RINGS, *LIO_MODEL_FOV, scan_period=LIO_PERIOD)
+    up = torch.tensor([0.0, 0.0, 0.8], device=dev)
+    xyz, hit = [], []
+    for i in range(scans.xyz.shape[0]):
+        img, h, _ = preprocess.to_range_image(
+            pcl.park(pcl.PointCloud(scans.xyz[i].to(dev) - up, scans.mask[i].to(dev))), model,
+            AZIMUTH)
+        xyz.append(torch.where(h[..., None], img + up, img))
+        hit.append(h)
+    return torch.stack(xyz), torch.stack(hit)
+
+
+def positions_ate(est_t, traj) -> float:
+    err = np.asarray(est_t, np.float64) - np.asarray(traj.t, np.float64)
+    return float(np.sqrt(np.mean(np.sum(err * err, axis=-1))))
+
+
+def count_launches(fn):
+    """(kernels the profiler saw on the device, kernel-launch API calls on
+    the host) of one call of fn()."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    dev_n = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
+    host_n = sum(e.count for e in ka if "LaunchKernel" in e.key)
+    return dev_n, host_n
+
+
+def _check_band(tag, ates, ref):
+    for r, a in enumerate(ates):
+        if not a < 1.0:
+            raise AssertionError(f"{tag}: robot {r} ATE {a:.3f} m >= 1.0 m")
+        if ref is not None and not a <= 1.25 * ref[r] + 0.05:
+            raise AssertionError(f"{tag}: robot {r} ATE {a:.3f} m beyond 1.25 x JAX {ref[r]} + 0.05")
+
+
+def lio_batch(dev, sc, cfg):
+    """LIO `pipeline.run` on the card with IMU packets and point times:
+    launches, loops, ATE band, a bit-identical second run."""
+    import torch
+
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.ops import pointcloud as pcl
+    from mr_slam_torch.runtime import observability as obs
+    from mr_slam_torch.runtime import pipeline
+
+    lcfg = lio_config(cfg)
+    scans = [pcl.PointCloud(s.xyz.to(dev), s.mask.to(dev)) for s in sc["lio"]]
+    imus = [tuple(x.to(dev) for x in imu) for imu in sc["imus"]]
+    times = [t.to(dev) for t in sc["lio_times"]]
+    origins = [se3.index(t, 0).to(dev) for t in sc["trajs"]]
+
+    def run():
+        obs.tracer.stats.clear()
+        obs.metrics.counters.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipeline.run(scans, lcfg, origins=origins, imus=imus, times_per_robot=times,
+                           device=dev)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    pipeline.run([pcl.PointCloud(s.xyz[:3], s.mask[:3]) for s in scans], lcfg, origins=origins,
+                 imus=[tuple(x[:2] for x in imu) for imu in imus],
+                 times_per_robot=[t[:3] for t in times], device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hopper_vgicp.reset_launch_count()
+    res, wall = run()
+    launches = hopper_vgicp.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    spans = obs.tracer.report()
+    counters = dict(obs.metrics.counters)
+    fps = [LIO_FRAMES / spans[f"robot{r}.frontend"]["total_s"] for r in range(N_ROBOTS)]
+    inter = [l for l in res.loops if l["robot_a"] != l["robot_b"]]
+    ates = [_ate(res, sc["trajs"], r) for r in range(N_ROBOTS)]
+    log(f"[lio] pipeline.run (frontend lio, {LIO_IMU_SUB} IMU samples a sweep, point times) wall "
+        f"{wall:.3f} s; peak device memory {peak / 2**20:.1f} MiB; vgicp_accum launches {launches}; "
+        f"front-ends {[round(f, 2) for f in fps]} frames/s; keyframes "
+        f"{[int(rr.store.count) for rr in res.robots]}; backend.associate "
+        f"{spans['backend.associate']['total_s']:.3f} s, backend.solve "
+        f"{spans['backend.solve']['total_s']:.3f} s")
+    log(f"[lio] loops: candidates {counters.get('loops.candidates', 0):.0f}, verified "
+        f"{counters.get('loops.verified', 0):.0f}, accepted after PCM {len(res.loops)} "
+        f"({len(inter)} inter-robot); keyframe ATE per robot (m) {[round(a, 4) for a in ates]}; "
+        f"JAX reference {JAX_REF_LIO_ATE} ({JAX_REF_LIO_LOOPS} inter-robot loops)")
+    res2, wall2 = run()
+    same = torch.equal(res.opt_poses.t, res2.opt_poses.t) and torch.equal(res.opt_poses.R,
+                                                                          res2.opt_poses.R)
+    log(f"[lio] second run wall {wall2:.3f} s; optimized poses bit-identical: {same}")
+    if launches <= 0:
+        raise AssertionError("the VGICP kernel was not launched by the LIO pipeline.run")
+    if not same:
+        raise AssertionError("two LIO pipeline.run calls gave different optimized poses")
+    if not inter:
+        raise AssertionError(f"the LIO run accepted no inter-robot loop (all: {len(res.loops)})")
+    _check_band("LIO pipeline.run", ates, JAX_REF_LIO_ATE)
+    return launches, dict(wall=wall, fps=fps, peak_mib=peak / 2**20, ates=ates, loops=len(inter))
+
+
+def lio_frame_profile(dev, sc, cfg):
+    """One LIO frame of robot 0 mid-run, stage by stage: the eager call
+    time (CUDA events around 5 calls after 3, `_cuda_ms`: the host's
+    launch work whenever it exceeds the kernels'), launches (device
+    kernels and host launch calls, `count_launches`), and the host syncs
+    of a whole `lio.step` (`count_syncs`)."""
+    import torch
+
+    from mr_slam_torch.frontend import lio
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import linalg3, pointcloud as pcl, voxel_grid
+    from mr_slam_torch.runtime import pipeline
+
+    lcfg = pipeline._lio_config(lio_config(cfg))
+    scans, times, imu = sc["lio"][0], sc["lio_times"][0], sc["imus"][0]
+    state = lio.init(lcfg, se3.index(sc["trajs"][0], 0).to(dev))
+    F = LIO_FRAMES // 2
+
+    def frame(i):
+        return (pcl.PointCloud(scans.xyz[i].to(dev), scans.mask[i].to(dev)), times[i].to(dev),
+                lio.ImuSample(*(x[i - 1].to(dev) for x in imu)))
+
+    for i in range(1, F):
+        state, _ = lio.step(state, *frame(i), lcfg)
+    scan, pt, packet = frame(F)
+    prop, (Rs, ps) = lio.propagate(state, packet, lcfg)
+    imu_t = torch.cumsum(packet.dt, 0) - packet.dt
+    und = lio.undistort(scan, pt, Rs, ps, prop.R, prop.p, imu_t, prop.R_li, prop.t_li)
+    bounds = ((-150.0,) * 3, (150.0,) * 3)
+    ds = pcl.voxel_downsample(und, lcfg.scan_leaf, lcfg.scan_capacity, bounds=bounds)
+    post, _ = lio.update(prop, ds, lcfg)
+    H = post.P + torch.eye(24, device=dev)
+    stages = {
+        "step": lambda: lio.step(state, scan, pt, packet, lcfg),
+        "propagate": lambda: lio.propagate(state, packet, lcfg),
+        "undistort": lambda: lio.undistort(scan, pt, Rs, ps, prop.R, prop.p, imu_t, prop.R_li,
+                                           prop.t_li),
+        "downsample x2": lambda: (
+            pcl.voxel_downsample(und, lcfg.scan_leaf, lcfg.scan_capacity, bounds=bounds),
+            pcl.voxel_downsample(und, lcfg.insert_leaf, lcfg.insert_capacity, bounds=bounds)),
+        "update": lambda: lio.update(prop, ds, lcfg),
+        "solve_psd_scaled (24x24)": lambda: linalg3.solve_psd_scaled(H, H[0]),
+        "inv_psd_scaled (24x24)": lambda: linalg3.inv_psd_scaled(H),
+        "insert + decay": lambda: voxel_grid.decay(
+            voxel_grid.insert(post.grid, pcl.transform(ds, post.lidar_pose())), post.p,
+            lcfg.map_radius),
+    }
+    # times first: a profiled call leaves the next eager calls slower
+    out = {name: dict(ms=_cuda_ms(fn, 5)) for name, fn in stages.items()}
+    for name, fn in stages.items():
+        out[name]["kernels"], out[name]["launch_calls"] = count_launches(fn)
+    syncs = count_syncs(lambda: lio.step(state, scan, pt, packet, lcfg))
+    log("[lio] one frame of robot 0 (frame %d), device kernels / host launch calls / ms: " % F
+        + "; ".join(f"{k} {v['kernels']} / {v['launch_calls']} / {v['ms']:.3f}" for k, v in out.items()))
+    log(f"[lio] host syncs of one lio.step: {sum(syncs.values())} {dict(syncs)}")
+    if sum(syncs.values()) != 0:
+        raise AssertionError(f"lio.step synchronizes the host: {dict(syncs)}")
+    return out
+
+
+def ulp_moved(cloud, seed, dev):
+    """`cloud` on `dev` with every coordinate of its valid points moved
+    by -1, 0 or +1 ulp (float32), drawn from `np.random.default_rng(seed)`
+    on the host; seed 0 gives the cloud as it is."""
+    import torch
+
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    x, m = cloud.xyz.cpu().numpy(), cloud.mask.cpu().numpy()
+    if seed:
+        k = np.random.default_rng(seed).integers(-1, 2, size=x.shape) * m[..., None]
+        x = np.where(k > 0, np.nextafter(x, np.float32(np.inf)),
+                     np.where(k < 0, np.nextafter(x, np.float32(-np.inf)), x))
+    return pcl.PointCloud(torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev))
+
+
+def s2m_compensation(dev, sc, cfg):
+    """scan2map `pipeline.run` on `lio_scenario`'s start-sheared scans
+    with and without point times, then `run_frontend` with times on
+    S2M_ULP_COPIES copies of the scans moved by +-1 ulp (`ulp_moved`).
+    The gates read the odometry's ATE (positions of every frame; the
+    keyframe store keeps the sheared scans, as the reference's does, so
+    loops verified on them bend the optimized trajectory in both
+    packages, printed beside it): per robot the median over the run as
+    given and the copies, against the reference's median over the same
+    inputs, and below the run without times."""
+    import torch
+
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.runtime import pipeline
+
+    origins = [se3.index(t, 0) for t in sc["trajs"]]
+    out = {}
+    for tag, times in (("with times", sc["s2m_times"]), ("without times", None)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipeline.run(sc["s2m"], cfg, origins=origins, times_per_robot=times, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        out[tag] = [positions_ate(rr.odom_poses.t.cpu(), tr) for rr, tr in zip(res.robots, sc["trajs"])]
+        kf = [_ate(res, sc["trajs"], r) for r in range(N_ROBOTS)]
+        log(f"[s2m] scan2map pipeline.run on start-sheared scans {tag}: wall {wall:.3f} s; odometry "
+            f"ATE per robot (m) {[round(a, 4) for a in out[tag]]}; JAX reference "
+            f"{JAX_REF_S2M_ATE[0] if times is not None else JAX_REF_S2M_RAW_ATE}; keyframe ATE after "
+            f"PGO {[round(a, 4) for a in kf]} ({len(res.loops)} loops)")
+    copies = [out["with times"]]
+    t = time.perf_counter()
+    for seed in range(1, S2M_ULP_COPIES + 1):
+        copies.append([positions_ate(pipeline.run_frontend(
+            ulp_moved(sc["s2m"][r], seed, dev), cfg.for_robot(r), origins[r].to(dev),
+            times=sc["s2m_times"][r].to(dev)).odom_poses.t.cpu(), sc["trajs"][r])
+            for r in range(N_ROBOTS)])
+    torch.cuda.synchronize()
+    med = [float(np.median([c[r] for c in copies])) for r in range(N_ROBOTS)]
+    out["median"] = med
+    log(f"[s2m] odometry ATE with times over the scans as given and {S2M_ULP_COPIES} copies moved by "
+        f"+-1 ulp ({time.perf_counter() - t:.1f} s), per robot: "
+        f"{[[round(c[r], 4) for c in copies] for r in range(N_ROBOTS)]}; median "
+        f"{[round(m, 4) for m in med]}; JAX reference {JAX_REF_S2M_ATE}")
+    _check_band("scan2map odometry with point times (median)", med, JAX_REF_S2M_ATE[1])
+    for r in range(N_ROBOTS):
+        if not med[r] < out["without times"][r]:
+            raise AssertionError(f"robot {r}: motion compensation did not lower the ATE: {out}")
+    return out
+
+
+def lio_session(dev, sc, cfg):
+    """Every robot on LIO in an `OnlineSlam` session (GEM off, phase 7's
+    cadences) fed by `synthetic_bag(with_imu=True)` through `replay`:
+    ATE band against the reference session, host syncs per LIO frame,
+    and a save / load at the midpoint finishing bit-identically."""
+    import os
+
+    import torch
+
+    from mr_slam_torch.datasets import replay, synthetic
+    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.runtime import checkpoint, online
+
+    scfg = online_config(lio_config(cfg))
+    t = time.perf_counter()
+    frames = replay.synthetic_bag(synthetic.default_world(LIO_WORLD), sc["trajs"], LIO_FRAMES,
+                                  n_rings=RINGS, n_azimuth=AZIMUTH, with_imu=True,
+                                  imu_sub=LIO_IMU_SUB)
+    t_bag = time.perf_counter() - t
+    hopper_vgicp.reset_launch_count()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    whole = online.OnlineSlam(scfg, device=dev)
+    replay.replay(frames, whole)
+    want = whole.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = hopper_vgicp.launch_count()
+    opt_t = want.opt_poses.t.cpu().numpy()
+    ates = [online_ate((want.robots[r].store.stamps.cpu().numpy(), int(want.robots[r].store.count)),
+                       opt_t, want.node_of[r], sc["trajs"][r], r) for r in range(N_ROBOTS)]
+    inter = [l for l in want.loops if l["robot_a"] != l["robot_b"]]
+    half = len(frames) // 2
+    first = online.OnlineSlam(scfg, device=dev)
+    syncs = count_frame_syncs(first, frames[:half])
+    lio_frames = [(s, busy) for (s, busy), f in zip(syncs, frames[:half]) if f.imu is not None]
+    plain = sorted(sum(s.values()) for s, busy in lio_frames if not busy)
+    sites = sum((s for s, busy in lio_frames if not busy), collections.Counter())
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mr_slam_torch", "build",
+                        "online", "lio_session.npz")
+    checkpoint.save_session(first, path)
+    resumed = checkpoint.load_session(path, device=dev)
+    replay.replay(frames[half:], resumed)
+    same = _same_result(resumed.result(), want)
+    log(f"[lio-online] synthetic_bag(with_imu=True) of {len(frames)} frames at {RINGS}x{AZIMUTH} "
+        f"in {t_bag:.1f} s; session (every robot LIO, GEM off) replay + result() {wall:.3f} s = "
+        f"{len(frames) / wall:.2f} frames/s; vgicp_accum launches {launches}; keyframes "
+        f"{[int(r.store.count) for r in want.robots]}; loops {len(want.loops)} ({len(inter)} "
+        f"inter-robot); keyframe ATE per robot (m) {[round(a, 4) for a in ates]}; JAX reference "
+        f"session {JAX_REF_LIO_ONLINE_ATE}")
+    log(f"[lio-online] host syncs per LIO add_frame that adds no keyframe and fires no cadence: "
+        f"{plain[:1] + plain[-1:]} (min, max over {len(plain)} frames), sites {dict(sites)}; "
+        f"checkpoint at frame {half}: {os.path.getsize(path) / 2**20:.2f} MiB, resumed session "
+        f"bit-identical: {same}")
+    if launches <= 0:
+        raise AssertionError("the VGICP kernel was not launched by the LIO session")
+    _check_band("LIO session", ates, JAX_REF_LIO_ONLINE_ATE)
+    if not plain or plain[-1] > LIO_SYNC_BUDGET:
+        raise AssertionError(f"a LIO frame makes {plain[-1:]} host syncs, budget {LIO_SYNC_BUDGET}")
+    if not same:
+        raise AssertionError("the resumed LIO session differs from the uninterrupted one")
+    return launches, dict(ates=ates, wall=wall, syncs=plain[-1])
+
+
+def feature_scenario():
+    """(trajectory, stacked clean scans on the host): FEAT_FRAMES frames
+    of robot 0's road (radius 22 m, phase 0) in phase 5's world, 32x1024
+    rays, robot 0's noise seed."""
+    import torch
+
+    from mr_slam_torch.datasets import synthetic
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import pointcloud as pcl
+
+    world = synthetic.default_world(WORLD_SEED)
+    traj = synthetic.circle_trajectory(FEAT_FRAMES, radius=22.0, laps=FEAT_LAPS)
+    rng = np.random.default_rng(0)
+    clouds = [synthetic.scan_to_cloud(*synthetic.scan(
+        world, se3.index(traj, i), n_rings=RINGS, n_azimuth=AZIMUTH, noise=0.01, rng=rng)[::2])
+        for i in range(FEAT_FRAMES)]
+    return traj, pcl.PointCloud(torch.stack([c.xyz for c in clouds]),
+                                torch.stack([c.mask for c in clouds]))
+
+
+def feature_run(dev):
+    """A-LOAM feature odometry over `feature_scenario`'s frames as range
+    images on the card: final error < 0.5 m, ATE band."""
+    import torch
+
+    from mr_slam_torch.frontend import feature_odometry, odometry
+    from mr_slam_torch.geometry import se3
+
+    traj, clean = feature_scenario()
+    xyz, hit = range_images(clean, dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, poses, diag = feature_odometry.run(xyz, hit, odometry.OdometryConfig(),
+                                          se3.index(traj, 0).to(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    a = positions_ate(poses.t.cpu(), traj)
+    final = float(torch.linalg.norm(poses.t[-1].cpu() - traj.t[-1]))
+    log(f"[feat] feature_odometry.run, robot 0's road, {FEAT_FRAMES} range images {RINGS}x{AZIMUTH}: "
+        f"{wall:.3f} s = {FEAT_FRAMES / wall:.2f} frames/s; ATE {a:.4f} m, final error {final:.4f} m, "
+        f"last inliers {float(diag['inliers'][-1]):.0f}; JAX reference (ATE, final) {JAX_REF_FEAT}")
+    if not final < 0.5:
+        raise AssertionError(f"feature odometry final error {final:.3f} m >= 0.5 m")
+    if JAX_REF_FEAT is not None and not a <= 1.25 * JAX_REF_FEAT[0] + 0.05:
+        raise AssertionError(f"feature odometry ATE {a:.3f} m beyond 1.25 x JAX {JAX_REF_FEAT[0]} + 0.05")
+    return dict(ate=a, final=final, fps=FEAT_FRAMES / wall)
+
+
+def phase_lio(dev, cfg):
+    """Phase 9 (see the module docstring). Returns (VGICP launches of its
+    main-path runs, the numbers it printed)."""
+    t = time.perf_counter()
+    sc = lio_scenario()
+    log(f"[lio] inputs built on the host in {time.perf_counter() - t:.1f} s: {N_ROBOTS} robots x "
+        f"{LIO_FRAMES} frames ({LIO_REST} at rest) x {RINGS}x{AZIMUTH} rays, IMU packets of "
+        f"{LIO_IMU_SUB} samples, scans sheared by their sweep's motion")
+    batch_launches, batch = lio_batch(dev, sc, cfg)
+    prof = lio_frame_profile(dev, sc, cfg)
+    s2m = s2m_compensation(dev, sc, cfg)
+    sess_launches, sess = lio_session(dev, sc, cfg)
+    feat = feature_run(dev)
+    log(f"[lio] vgicp_accum launches in phase 9: LIO pipeline.run {batch_launches}, LIO session "
+        f"{sess_launches}")
+    return batch_launches + sess_launches, dict(batch=batch, profile=prof, s2m=s2m, session=sess,
+                                                feat=feat)
+
 
 def main() -> int:
     import torch
@@ -1527,10 +2108,11 @@ def main() -> int:
     del scans
     online_vgicp, online_stencil, online_err = phase_online(dev, trajs, host_scans, cfg)
     desc_vgicp, record16, _ = phase_descriptors(dev, res, trajs, host_scans, cfg)
-    log(f"[desc] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
-        f"{online_vgicp} (phase 7) + {desc_vgicp} (phase 8), terrain_stencil "
-        f"{stencil_launches} (phase 6) + {online_stencil} (phase 7)")
-    vgicp_launches += online_vgicp + desc_vgicp
+    lio_vgicp, _ = phase_lio(dev, cfg)
+    log(f"[lio] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
+        f"{online_vgicp} (phase 7) + {desc_vgicp} (phase 8) + {lio_vgicp} (phase 9), "
+        f"terrain_stencil {stencil_launches} (phase 6) + {online_stencil} (phase 7)")
+    vgicp_launches += online_vgicp + desc_vgicp + lio_vgicp
     vgicp["max_abs_err"] = max(vgicp["max_abs_err"], record16["max_abs_err"])
     stencil_launches += online_stencil
     stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err, online_err)

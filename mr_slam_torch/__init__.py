@@ -13,7 +13,8 @@ Layout (the reference's, slice by slice):
   ops/       point clouds, voxel-hash grids, registration, and the
              hand-written Hopper kernel (`ops/hopper_vgicp.py`,
              `csrc/vgicp_accum.cu`)
-  frontend/  scan-to-map odometry + keyframe gating
+  frontend/  scan-to-map odometry, the FAST-LIO-style IEKF, A-LOAM
+             feature odometry, sensor preprocessing, keyframe gating
   loop/      place descriptors (ScanContext, RING / RING++, DiSCO and the
              DiscoNet forward pass, M2DP, FastHistogram)
   backend/   factor graph, PCM gating, chordal PGO

@@ -58,13 +58,16 @@ def synthetic_bag(
     """Raycast an interleaved multi-robot frame stream: robot r's frame
     i is stamped i * frame_dt + r * stagger, so robots' frames
     interleave like concurrent rosbag topics. Robot r's range noise is
-    drawn from `np.random.default_rng(seed + r)`. IMU packets belong to
-    the LIO front-end, which is not ported: `with_imu=True` raises."""
-    if with_imu:
-        raise NotImplementedError("IMU packets feed the LIO front-end: ROADMAP Queue 1 step 14")
+    drawn from `np.random.default_rng(seed + r)`. `with_imu=True`
+    attaches noise-free IMU packets of `imu_sub` samples
+    (`synthetic.imu_for_trajectory`), the PointCloud2 + Imu pairing a
+    FAST-LIO session consumes; frame 0 of each robot carries None (the
+    session starts from the registered origin)."""
     frames: list[Frame] = []
     for r, traj in enumerate(trajs):
         rng = np.random.default_rng(seed + r)
+        imu = synthetic.imu_for_trajectory(traj, frame_dt=frame_dt, n_sub=imu_sub) \
+            if with_imu else None
         for i in range(n_frames):
             xyz, _, hit = synthetic.scan(world, se3.index(traj, i), n_rings=n_rings,
                                          n_azimuth=n_azimuth, rng=rng)
@@ -73,6 +76,7 @@ def synthetic_bag(
                 robot=r,
                 scan=synthetic.scan_to_cloud(xyz, hit),
                 origin=se3.index(traj, 0) if i == 0 else None,
+                imu=tuple(x[i - 1] for x in imu) if imu is not None and i > 0 else None,
             ))
     frames.sort(key=lambda f: f.stamp)
     return frames

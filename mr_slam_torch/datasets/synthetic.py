@@ -1,9 +1,11 @@
 """Synthetic multi-robot lidar worlds with analytic raycasting (port of
 `mr_slam_tpu/datasets/synthetic.py`: `World`, `default_world`,
-`circle_trajectory`, `scan`, `scan_to_cloud`).
+`circle_trajectory`, `scan`, `scan_to_cloud`, `imu_for_trajectory`,
+`shear_scan`).
 
 Data generation runs on the host in numpy and returns CPU tensors;
-callers move them to their device. Random draws come from numpy
+callers move them to their device (`imu_for_trajectory` and
+`shear_scan` work on the device of their input). Random draws come from numpy
 `default_rng(seed)`, so a world or a noise draw differs from the
 reference's (`jax.random`) for the same seed: parity tests build a world
 and its scans once here and hand the same arrays to both packages.
@@ -15,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..geometry import so3
+from ..geometry import se3, so3
 from ..geometry.se3 import Pose
 from ..ops.pointcloud import PointCloud, park
 
@@ -130,3 +132,56 @@ def circle_trajectory(
     yaw = torch.from_numpy(ang + np.float32(s * np.pi / 2))  # tangent heading
     t = np.stack([x, y, np.full_like(x, z)], axis=-1).astype(np.float32)
     return Pose(so3.yaw_rot(yaw), torch.from_numpy(t))
+
+
+def imu_for_trajectory(
+    traj: Pose,
+    frame_dt: float = 0.1,
+    n_sub: int = 10,
+    rng: np.random.Generator | None = None,
+    gyro_noise: float = 0.0,
+    acc_noise: float = 0.0,
+):
+    """Body-frame IMU packets between consecutive poses of `traj` (T,):
+    constant body rate from the pose geodesic over each frame interval,
+    specific force from world-acceleration finite differences plus the
+    gravity reaction, at the interval start attitude. Gyro, then accel
+    noise are drawn from `rng` when given. Returns (gyro (T-1, n_sub, 3),
+    acc (T-1, n_sub, 3), dt (T-1, n_sub)) on the trajectory's device."""
+    T = traj.t.shape[0]
+    dev = traj.t.device
+    rel = se3.between(se3.index(traj, slice(0, T - 1)), se3.index(traj, slice(1, T)))
+    w_body = so3.log(rel.R) / frame_dt
+    v_w = (traj.t[1:] - traj.t[:-1]) / frame_dt
+    dv = torch.diff(v_w, dim=0, prepend=v_w[:1]) / frame_dt
+    g_world = torch.tensor([0.0, 0.0, -9.81], device=dev)
+    f_body = torch.einsum("tba,tb->ta", traj.R[:-1], dv - g_world)
+    gyro = w_body[:, None, :].repeat(1, n_sub, 1)
+    acc = f_body[:, None, :].repeat(1, n_sub, 1)
+    if rng is not None:
+        gyro = gyro + gyro_noise * torch.from_numpy(
+            rng.standard_normal(gyro.shape).astype(np.float32)).to(dev)
+        acc = acc + acc_noise * torch.from_numpy(
+            rng.standard_normal(acc.shape).astype(np.float32)).to(dev)
+    dts = torch.full((T - 1, n_sub), frame_dt / n_sub, dtype=torch.float32, device=dev)
+    return gyro, acc, dts
+
+
+def shear_scan(cloud: PointCloud, delta: Pose, scan_period: float = 0.1):
+    """A spinning-lidar sweep recorded while the sensor moves: `cloud`
+    is an instantaneous scan in the sweep-START body frame, `delta` the
+    sensor motion over the sweep (sweep end in sweep start). Each point,
+    stamped by its azimuth (one revolution per sweep), is re-expressed
+    in the sensor frame at its capture time,
+
+        p_rec = R_s^T (p_start - t_s),  (R_s, t_s) = slerp(I -> delta, s),
+
+    the exact inverse of `preprocess.undistort_constant_velocity`.
+    Returns (sheared cloud, t_rel (N,) sweep-relative capture times)."""
+    phi = torch.remainder(torch.atan2(cloud.xyz[:, 1], cloud.xyz[:, 0]), 2 * np.pi)
+    t_rel = scan_period * phi / (2 * np.pi)
+    s = t_rel / scan_period
+    R_s = so3.exp(s[:, None] * so3.log(delta.R))
+    t_s = s[:, None] * delta.t
+    rec = torch.einsum("nji,nj->ni", R_s, cloud.xyz - t_s)
+    return park(PointCloud(rec, cloud.mask)), t_rel

@@ -18,6 +18,7 @@ from ..geometry import se3
 from ..geometry.se3 import Pose
 from ..ops import pointcloud as pcl
 from ..ops import registration, voxel_grid
+from . import preprocess
 
 _BOUNDS = ((-150.0, -150.0, -150.0), (150.0, 150.0, 150.0))
 
@@ -64,19 +65,23 @@ def step(
     scan: pcl.PointCloud,
     config: OdometryConfig,
     t_rel: torch.Tensor | None = None,
+    scan_period: float = 0.1,
     shed: bool = False,
 ):
     """Process one lidar frame (body-frame cloud). Returns (new_state,
     diagnostics dict).
 
-    `t_rel` (per-point capture times for motion compensation) needs
-    `frontend/preprocess.py`, which is not ported yet: it raises.
-    `shed`: skip the map-refinement half (fine insert + decay) — the
-    load-shedding mode; the pose still registers against the map."""
-    if t_rel is not None:
-        raise NotImplementedError("motion compensation (t_rel) needs frontend.preprocess")
+    `t_rel`: optional (N,) per-point capture times from the sweep start.
+    With them the scan is motion-compensated to the sweep-start frame by
+    the constant-velocity prediction before it is downsampled (A-LOAM's
+    `TransformToStart`); the registered and inserted clouds are the
+    compensated one. `shed`: skip the map-refinement half (fine insert +
+    decay) — the load-shedding mode; the pose still registers against
+    the map."""
     motion = se3.between(state.prev_pose, state.pose)
     pred = se3.compose(state.pose, motion)
+    if t_rel is not None:
+        scan = preprocess.undistort_constant_velocity(scan, t_rel, motion, scan_period)
     ds = pcl.voxel_downsample(scan, config.scan_leaf, config.scan_capacity, bounds=_BOUNDS)
 
     if state.frame > 0:

@@ -1,5 +1,7 @@
-"""Closed-form batched 3x3 symmetric linear algebra (port of
-`mr_slam_tpu/ops/linalg3.py`).
+"""Closed-form batched 3x3 symmetric linear algebra, and the small PSD
+solves of the Gauss-Newton and IEKF updates (port of
+`mr_slam_tpu/ops/linalg3.py`: `det3`, `inv3`, `eigvalsh3`, `eigh3`,
+`solve_psd`, `inv_psd_scaled`, `solve_psd_scaled`).
 
 The same analytic formulas as the reference, element-wise over any batch
 shape. `torch.linalg.eigh` is not used: it orders and signs degenerate
@@ -160,3 +162,62 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor, eps: float = 1e-12) -> torch.Ten
             s = s - L[k][i] * x[k]
         x[i] = s
     return torch.stack(x, dim=-1)
+
+
+def _ldl_solve(A: torch.Tensor, B: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """LDL^T solve of (..., n, n) @ X = B (..., n, m) without pivoting,
+    column by column: n steps of vector operations each for the
+    factorization and the two substitutions, so an n x n system costs
+    O(n) launches on the card (the element-wise unrolling of `solve_psd`
+    costs O(n^3)). The pivots get `solve_psd`'s PSD guard."""
+    n = A.shape[-1]
+    L = torch.zeros_like(A)
+    D = A.new_zeros(A.shape[:-1])
+    for j in range(n):
+        v = L[..., j, :j] * D[..., :j]
+        d = A[..., j, j] - torch.sum(L[..., j, :j] * v, dim=-1)
+        d = torch.where(d > eps, d, torch.full_like(d, eps))
+        D[..., j] = d
+        if j + 1 < n:
+            col = A[..., j + 1:, j] - (L[..., j + 1:, :j] @ v[..., :, None])[..., 0]
+            L[..., j + 1:, j] = col / d[..., None]
+    Y = torch.empty_like(B)
+    for i in range(n):
+        Y[..., i, :] = B[..., i, :] - (L[..., i:i + 1, :i] @ Y[..., :i, :])[..., 0, :]
+    X = torch.empty_like(B)
+    Z = Y / D[..., :, None]
+    for i in reversed(range(n)):
+        X[..., i, :] = Z[..., i, :] - (L[..., i + 1:, i:i + 1].transpose(-1, -2)
+                                       @ X[..., i + 1:, :])[..., 0, :]
+    return X
+
+
+def _jacobi(A: torch.Tensor, eps: float):
+    """(D^-1/2 A D^-1/2, D^-1/2) with D = diag(A) clipped below at eps."""
+    d = torch.sqrt(torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), min=eps))
+    Dinv = 1.0 / d
+    return A * Dinv[..., :, None] * Dinv[..., None, :], Dinv
+
+
+# The scaled solves run in float64 and round to float32 once. In float32
+# the scaling alone perturbs a cond ~1e6 system by ~cond * eps (the
+# reference's solves lose 1e-3 to 8e-3 of the solution there); a 24x24
+# float64 system costs the card nothing that shows.
+
+
+def inv_psd_scaled(A: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Symmetric-Jacobi-scaled inverse of an SPD matrix, D inv(DAD) D
+    with D = diag(A)^-1/2 (the IEKF's information matrices mix ~1e8
+    measurement blocks with ~1e2 prior blocks). The reference inverts
+    the scaled matrix by LU; here the column-wise LDL^T solves it against
+    the identity, which needs no cuSOLVER call and so no host sync."""
+    As, Dinv = _jacobi(A.double(), eps)
+    eye = torch.eye(A.shape[-1], dtype=As.dtype, device=A.device).expand(As.shape)
+    return (_ldl_solve(As, eye) * Dinv[..., :, None] * Dinv[..., None, :]).to(A.dtype)
+
+
+def solve_psd_scaled(A: torch.Tensor, b: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """`solve_psd` with the same symmetric Jacobi scaling, by the
+    column-wise LDL^T (the reference unrolls its 24x24 solve)."""
+    As, Dinv = _jacobi(A.double(), eps)
+    return (_ldl_solve(As, (b.double() * Dinv)[..., None])[..., 0] * Dinv).to(A.dtype)

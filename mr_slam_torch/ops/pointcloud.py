@@ -154,8 +154,9 @@ def voxel_downsample(
 
 # knn materialises (M, N) distance and sort-key matrices per cloud;
 # clouds are taken in chunks of at most this many matrix entries (2^26:
-# 256 MiB of f32 distances and 512 MiB of int64 keys), so a 256-keyframe
-# store of 4096-point clouds goes 4 clouds at a time
+# 256 MiB of f32 distances and 512 MiB of int64 keys, the cross term's
+# float64 temporary no larger), so a 256-keyframe store of 4096-point
+# clouds goes 4 clouds at a time
 KNN_CHUNK_ELEMS = 1 << 26
 
 
@@ -170,6 +171,20 @@ def _sum_sq(x: torch.Tensor) -> torch.Tensor:
     return (acc.double() + xd[..., 2] * xd[..., 2]).float()
 
 
+def _cross(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q @ x^T for (..., M, 3) and (..., N, 3) as the float32 chain
+    fma(q2, x2, fma(q1, x1, q0 * x0)), the products exact in float64:
+    the reference's CPU dot, on every device (a cuBLAS GEMM rounds
+    otherwise), so the card's neighbours are the CPU's. At most one (M, N)
+    float64 and one float32 temporary are alive at a time."""
+    qd, xd = q.double(), x.double()
+    acc = (qd[..., :, None, 0] * xd[..., None, :, 0]).float()
+    for j in (1, 2):
+        t = qd[..., :, None, j] * xd[..., None, :, j]
+        acc = t.add_(acc).float()
+    return acc
+
+
 def _order_key(d2: torch.Tensor) -> torch.Tensor:
     """int64 keys that order like the float32 values `d2` (-0.0 as 0.0),
     the lower column first among equal values: the reference's `top_k`
@@ -181,8 +196,7 @@ def _order_key(d2: torch.Tensor) -> torch.Tensor:
 
 
 def _knn_one(query: torch.Tensor, xyz: torch.Tensor, mask: torch.Tensor, k: int):
-    d2 = _sum_sq(query)[..., None] + _sum_sq(xyz)[..., None, :] \
-        - (2.0 * query) @ xyz.transpose(-1, -2)
+    d2 = _sum_sq(query)[..., None] + _sum_sq(xyz)[..., None, :] - _cross(2.0 * query, xyz)
     d2 = torch.where(mask[..., None, :], d2, torch.inf)
     idx = torch.topk(_order_key(d2), k, dim=-1, largest=False, sorted=True).indices
     return torch.clamp(torch.gather(d2, -1, idx), min=0.0), idx

@@ -11,8 +11,9 @@ launches it once on a CUDA tensor with the pose applied inside.
 
 Ported: `RegistrationResult`, `_gn_update`, `_uncenter`, `_select_best`,
 `_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B),
-`vgicp` (direct1 without source covariances only), `point_to_plane_icp`
-and `fitness`.
+`vgicp` (direct1 without source covariances only), `point_to_plane_icp`,
+`loam_icp` (with `pooled_moments`, shared with the LIO update; the
+reference's `so3_hat` is `so3.hat`) and `fitness`.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..geometry import se3
+from ..geometry import se3, so3
 from ..geometry.se3 import Pose
 from . import hopper_vgicp, linalg3, voxel_grid
 from .pointcloud import PointCloud
@@ -255,6 +256,78 @@ def point_to_plane_icp(
             cost = torch.sum(r * r * w) / torch.clamp(torch.sum(w), min=1.0)
             n_in = torch.sum(w)
     fit = fitness(source, target, pose, max_range=1.0)
+    return RegistrationResult(
+        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
+        converged=last_dx < tol,
+    )
+
+
+def pooled_moments(target: voxel_grid.VoxelGrid, tp: torch.Tensor):
+    """(mean (N, 3), covariance (N, 3, 3), weight (N,)) of the Gaussian
+    cells found around each point by `direct7`, pooled by count."""
+    found, cnt, mu, Cv = voxel_grid.lookup(target, tp, "direct7")
+    wk = torch.where(found, cnt, 0.0)
+    wsum = torch.sum(wk, dim=-1)
+    mu_p = torch.einsum("nk,nki->ni", wk, mu) / torch.clamp(wsum[:, None], min=1.0)
+    M2 = Cv + mu[..., :, None] * mu[..., None, :]
+    M2_p = torch.einsum("nk,nkij->nij", wk, M2) / torch.clamp(wsum[:, None, None], min=1.0)
+    return mu_p, M2_p - mu_p[:, :, None] * mu_p[:, None, :], wsum
+
+
+def loam_icp(
+    corners: PointCloud,
+    surfs: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    iters: int = 10,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+) -> RegistrationResult:
+    """A-LOAM-style feature registration: surf points against planes
+    (point-to-plane, LidarPlaneFactor) and corner points against lines
+    (the perpendicular offset from the pooled cells' dominant axis,
+    LidarEdgeFactor), both families in one 6x6 GN system per iteration,
+    re-associated every iteration. Single cloud."""
+    max_corr2 = _f32_square(max_corr_dist)
+    eye3 = torch.eye(3, dtype=corners.xyz.dtype, device=corners.xyz.device)
+    pose = init
+    dev = surfs.xyz.device
+    last_dx = torch.full((), torch.inf, device=dev)
+    cost = torch.zeros((), device=dev)
+    n_in = torch.zeros((), device=dev)
+    for _ in range(iters):
+        # surf -> plane
+        tp_s = se3.apply(pose, surfs.xyz)
+        mu_p, Cp, wsum = pooled_moments(target, tp_s)
+        n, planar = _planarity(Cp)
+        d2s = torch.sum((mu_p - tp_s) ** 2, dim=-1)
+        w_s = (surfs.mask & planar & (wsum >= 5) & (d2s < max_corr2)).to(torch.float32)
+        r_s = torch.sum(n * (tp_s - mu_p), dim=-1)
+        J_s = torch.cat([n, torch.linalg.cross(tp_s, n, dim=-1)], dim=-1)   # (Ns, 6)
+        H = (J_s * w_s[:, None]).T @ J_s
+        g = -(J_s.T @ (r_s * w_s))
+        # corner -> line
+        tp_c = se3.apply(pose, corners.xyz)
+        mu_cp, Ccp, wsum_c = pooled_moments(target, tp_c)
+        evc, Vc = linalg3.eigh3(Ccp + 1e-9 * eye3)
+        d = Vc[..., :, 2]  # the line: the largest-eigenvalue axis
+        linear = evc[..., 2] > 3.0 * torch.clamp(evc[..., 1], min=1e-9)
+        d2c = torch.sum((mu_cp - tp_c) ** 2, dim=-1)
+        w_c = (corners.mask & linear & (wsum_c >= 4) & (d2c < max_corr2)).to(torch.float32)
+        diff = tp_c - mu_cp
+        r_c = diff - d * torch.sum(d * diff, dim=-1, keepdim=True)        # (Nc, 3)
+        P = eye3 - d[:, :, None] * d[:, None, :]
+        J_c = torch.cat([P, -(P @ so3.hat(tp_c))], dim=-1)               # (Nc, 3, 6)
+        H = H + torch.einsum("nri,nrj,n->ij", J_c, J_c, w_c)
+        g = g - torch.einsum("nri,nr,n->i", J_c, r_c, w_c)
+        dx = _gn_update(H + 1e-6 * _eye6(H), g, damping)
+        pose = se3.compose(se3.exp(dx), pose)
+        last_dx = torch.linalg.norm(dx)
+        n_in = torch.sum(w_s) + torch.sum(w_c)
+        cost = (torch.sum(r_s * r_s * w_s) + torch.sum(torch.sum(r_c * r_c, dim=-1) * w_c)) \
+            / torch.clamp(n_in, min=1.0)
+    fit = fitness(surfs, target, pose, max_range=1.0)
     return RegistrationResult(
         pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
         converged=last_dx < tol,

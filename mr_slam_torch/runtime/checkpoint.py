@@ -17,7 +17,9 @@ descriptor `{"sc", "key"}` is stored `key` first), lists in order,
 `None` dropped. A field the port keeps on the host (the factor graph's
 node and edge counts, the odometry frame counter, a voxel grid's leaf)
 is a leaf all the same, written as the reference's 0-d array and read
-back into a Python number. Integer arrays are written as int32, the
+back into a Python number. A LIO robot's `odo.{r}.{i}` are its
+`LioState`'s twelve leaves: nine state tensors, the voxel map's two,
+then the frame count. Integer arrays are written as int32, the
 reference's integer type, and read back in the dtype of the port's
 template (int64 counts and indices).
 

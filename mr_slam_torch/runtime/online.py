@@ -25,9 +25,11 @@ cadence products (TF, merged map) and the loop stage sync when they
 fire. (The odometry step's own syncs, inside `so3.project`'s SVD, are
 the batch front-end's as well.)
 
-Only the scan2map front-end is ported: a robot whose resolved config
-selects the LIO front-end, or a frame with per-point times or an IMU
-packet, raises (ROADMAP Queue 1 step 14).
+A robot runs the front-end its resolved config selects: scan2map, or
+the FAST-LIO-style IEKF (`OdometryCfg.frontend == "lio"`), whose frames
+after the first must carry an IMU packet. Per-point capture times
+motion-compensate either. A LIO frame makes no host sync of its own:
+its budget is the keyframe gate's one (plus GEM's).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 
 from ..backend import chordal, factor_graph as fg
 from ..frontend import keyframes as kf
-from ..frontend import odometry
+from ..frontend import lio, odometry
 from ..geometry import se3
 from ..geometry.se3 import Pose
 from ..geometry.tf_tree import TransformBuffer
@@ -50,9 +52,6 @@ from ..parallel import store as mstore_lib
 from . import observability as obs
 from . import pipeline as pl
 from .config import SlamConfig
-
-_STEP14 = "the LIO front-end and per-point motion compensation are ROADMAP Queue 1 step 14"
-
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device on a machine without
@@ -176,15 +175,16 @@ class OnlineSlam:
             origin = Pose(self._to_device(origin.R), self._to_device(origin.t))
         rcfg = self.cfg.for_robot(robot)
         if rcfg.odometry.frontend == "lio":
-            raise NotImplementedError(f"robot {robot} selects the LIO front-end: {_STEP14}")
-        ocfg = pl._odometry_config(rcfg)
-        rs = dict(
-            frontend="scan2map",
-            odo=odometry.init(ocfg, origin, device=self.device),
-            odo_cfg=ocfg,
-            kf_cfg=rcfg.keyframes,
-            frame=0,
-        )
+            # the streaming lidar-inertial front-end: frames carry IMU packets
+            lcfg = pl._lio_config(rcfg)
+            odo = lio.init(lcfg, origin, extrinsic=pl._lio_extrinsic(rcfg, self.device),
+                           device=self.device)
+            rs = dict(frontend="lio", odo=odo, odo_cfg=lcfg)
+        else:
+            ocfg = pl._odometry_config(rcfg)
+            rs = dict(frontend="scan2map", odo=odometry.init(ocfg, origin, device=self.device),
+                      odo_cfg=ocfg)
+        rs.update(kf_cfg=rcfg.keyframes, frame=0)
         if self.enable_gem:
             e = rcfg.elevation
             center = (0.0, 0.0) if origin is None else tuple(origin.t[:2].tolist())
@@ -202,14 +202,15 @@ class OnlineSlam:
     def add_frame(self, robot: int, scan: pcl.PointCloud, stamp: float = 0.0, times=None,
                   imu=None) -> Pose:
         """Odometry tick + keyframe gate. Returns the current odometry
-        pose estimate for `robot`. `times` (per-point capture times) and
-        `imu` (an IMU packet) belong to the LIO front-end and raise.
+        pose estimate for `robot`. `times`: optional (P,) sweep-relative
+        point times, motion compensation in either front-end. `imu`:
+        (gyro (S, 3), acc (S, 3), dt (S)), the packet covering the sweep,
+        required on every frame after the first of a LIO robot (frame 0
+        runs no filter step and gates the origin keyframe).
 
         Sync budget: one scalar device-to-host transfer per frame (the
         keyframe-gate bit), plus the GEM tick's motion scalars when GEM
         is on."""
-        if times is not None or imu is not None:
-            raise NotImplementedError(f"add_frame(times=..., imu=...): {_STEP14}")
         if robot not in self.robots:
             self.register_robot(robot)
         rs = self.robots[robot]
@@ -220,14 +221,28 @@ class OnlineSlam:
         # after a registered keyframe (the map must grow around new
         # keyframes); a shed frame's map contribution is DROPPED
         after_kf = rs["frame"] == rs.get("last_kf_frame", -2) + 1
-        shed = (rs["frame"] > 0 and not after_kf and (
+        shed = (rs["frontend"] == "scan2map" and rs["frame"] > 0 and not after_kf and (
             (sched.map_every > 1 and rs["frame"] % sched.map_every != 0)
             or (sched.shed and self._over_budget_prev)
         ))
+        if times is not None:
+            times = self._to_device(times)
         t_frame0 = time.perf_counter()
         with obs.tracer.span("online.frontend"):
-            rs["odo"], _ = odometry.step(rs["odo"], scan, rs["odo_cfg"], shed=shed)
-            pose = rs["odo"].pose
+            if rs["frontend"] == "lio":
+                if imu is not None:
+                    gyro, acc, dts = (self._to_device(x) for x in imu)
+                    end = torch.sum(dts) * 0.999
+                    pt_time = end.expand(scan.xyz.shape[0]) if times is None else times
+                    rs["odo"], _ = lio.step(rs["odo"], scan, pt_time,
+                                            lio.ImuSample(gyro=gyro, acc=acc, dt=dts), rs["odo_cfg"])
+                elif rs["frame"] > 0:
+                    raise ValueError(f"robot {robot} runs the LIO front-end; add_frame needs an "
+                                     "imu=(gyro, acc, dt) packet per frame")
+                pose = rs["odo"].pose()
+            else:
+                rs["odo"], _ = odometry.step(rs["odo"], scan, rs["odo_cfg"], t_rel=times, shed=shed)
+                pose = rs["odo"].pose
             k = self.kf_counts[robot]  # the slot a keyframe lands in
             self.mstore, added, _ = mstore_lib.gate_and_add(
                 self.mstore, row, scan, pose,

@@ -1,8 +1,10 @@
 """End-to-end multi-robot SLAM pipeline (port of the main path of
 `mr_slam_tpu/runtime/pipeline.py`):
 
-  scan2map odometry -> keyframe gating -> place descriptors (every
-  `LoopCfg.method`: ScanContext, RING, RING++, DiSCO, M2DP, FastHistogram) ->
+  odometry (scan2map, or the FAST-LIO-style IEKF with IMU packets;
+  either with per-point motion compensation) -> keyframe gating ->
+  place descriptors (every `LoopCfg.method`: ScanContext, RING, RING++,
+  DiSCO, M2DP, FastHistogram) ->
   batched loop retrieval + chunked VGICP verification -> per-robot-pair
   PCM -> chordal PGO
 
@@ -72,38 +74,110 @@ def _odometry_config(cfg: SlamConfig) -> odometry.OdometryConfig:
     )
 
 
+def _lio_config(cfg: SlamConfig):
+    from ..frontend import lio
+
+    o = cfg.odometry
+    return lio.LioConfig(
+        map_leaf=o.map_leaf, insert_leaf=o.insert_leaf, scan_leaf=o.scan_leaf,
+        scan_capacity=o.scan_capacity, insert_capacity=o.insert_capacity,
+        table_size=o.table_size, map_radius=o.map_radius,
+        estimate_extrinsics=o.estimate_extrinsics,
+    )
+
+
+def _lio_extrinsic(cfg: SlamConfig, device=None) -> Pose | None:
+    """OdometryCfg.extrinsic (a 4x4 tuple) as a Pose on `device`, or None."""
+    if cfg.odometry.extrinsic is None:
+        return None
+    T = torch.tensor(cfg.odometry.extrinsic, dtype=torch.float32).reshape(4, 4)
+    return Pose(T[:3, :3].contiguous(), T[:3, 3].contiguous()).to(device)
+
+
+def _frontend_lio(scans: pcl.PointCloud, imu: tuple, cfg: SlamConfig, origin: Pose,
+                  times: torch.Tensor | None):
+    """LIO odometry and keyframe gating as a frame loop: (poses (T,),
+    store, added (T,) bool tensor). Frame 0 runs no filter step and gates
+    the origin keyframe; frame i >= 1 propagates IMU packet i - 1. Without
+    `times` every point is stamped at the sweep end (instantaneous
+    synthetic scans)."""
+    from ..frontend import lio
+
+    gyro, acc, dts = imu
+    dev = scans.xyz.device
+    lcfg = _lio_config(cfg)
+    state = lio.init(lcfg, origin, extrinsic=_lio_extrinsic(cfg, dev))
+    store = kf.init(cfg.keyframes.capacity, cfg.keyframes.points_per_kf, dev)
+    gate = dict(dist_thresh=cfg.keyframes.dist_thresh, leaf=cfg.keyframes.leaf)
+    store, add0 = kf.maybe_add(store, pcl.PointCloud(scans.xyz[0], scans.mask[0]), origin,
+                               torch.zeros((), device=dev), **gate)
+    end = torch.sum(dts[0]) * 0.999
+    T = scans.xyz.shape[0]
+    poses, added = [origin], [add0]
+    for i in range(1, T):
+        scan = pcl.PointCloud(scans.xyz[i], scans.mask[i])
+        pt_time = end.expand(scan.xyz.shape[0]) if times is None \
+            else torch.minimum(times[i], end)
+        state, _ = lio.step(state, scan, pt_time,
+                            lio.ImuSample(gyro=gyro[i - 1], acc=acc[i - 1], dt=dts[i - 1]), lcfg)
+        store, add = kf.maybe_add(store, scan, state.pose(),
+                                  torch.full((), float(i), device=dev), **gate)
+        poses.append(state.pose())
+        added.append(add)
+    return se3.stack(poses), store, torch.stack(added)
+
+
+def _frontend_scan2map(scans: pcl.PointCloud, cfg: SlamConfig, origin: Pose,
+                       times: torch.Tensor | None):
+    """Scan-to-map odometry and keyframe gating as a frame loop, with
+    constant-velocity motion compensation when `times` is given."""
+    dev = scans.xyz.device
+    ocfg = _odometry_config(cfg)
+    state = odometry.init(ocfg, origin)
+    store = kf.init(cfg.keyframes.capacity, cfg.keyframes.points_per_kf, dev)
+    poses, added = [], []
+    for i in range(scans.xyz.shape[0]):
+        scan = pcl.PointCloud(scans.xyz[i], scans.mask[i])
+        state, _ = odometry.step(state, scan, ocfg, t_rel=None if times is None else times[i])
+        store, add = kf.maybe_add(
+            store, scan, state.pose, torch.full((), float(i), device=dev),
+            dist_thresh=cfg.keyframes.dist_thresh, leaf=cfg.keyframes.leaf,
+        )
+        poses.append(state.pose)
+        added.append(add)
+    return se3.stack(poses), store, torch.stack(added)
+
+
 def run_frontend(
     scans: pcl.PointCloud,
     cfg: SlamConfig,
     origin: Pose | None = None,
+    imu: tuple | None = None,
+    times: torch.Tensor | None = None,
 ) -> RobotResult:
-    """Scan-to-map odometry + keyframe extraction for one robot's scan
-    sequence (stacked (T, P, 3)/(T, P), body frame). A Python loop over
-    frames that reads none of its results on the host: the keyframe
-    flags come back once, at the end. (On the card each odometry step
-    still syncs inside `so3.project`, whose `torch.linalg.svd` checks
-    cuSOLVER's status.) Only the scan2map front-end is ported."""
-    if cfg.odometry.frontend != "scan2map":
-        raise NotImplementedError(f"front-end {cfg.odometry.frontend!r} is not ported")
+    """Odometry + keyframe extraction for one robot's scan sequence
+    (stacked (T, P, 3)/(T, P), body frame), on the scans' device.
+
+    `imu`: (gyro (T-1, S, 3), acc (T-1, S, 3), dt (T-1, S)) packets; with
+    `cfg.odometry.frontend == "lio"` they drive the FAST-LIO-style
+    front-end, otherwise (or without them) scan2map runs. `times`:
+    optional (T, P) sweep-relative point times, motion compensation in
+    both front-ends (IMU-interpolated in LIO, constant-velocity in
+    scan2map).
+
+    A Python loop over frames that reads none of its results on the
+    host: the keyframe flags come back once, at the end. (A scan2map
+    step still syncs inside `so3.project`, whose `torch.linalg.svd`
+    checks cuSOLVER's status; a LIO step does not sync.)"""
     dev = scans.xyz.device
     if origin is None:
         origin = se3.identity(device=dev)
-    ocfg = _odometry_config(cfg)
     with obs.tracer.span("frontend"):
-        state = odometry.init(ocfg, origin)
-        store = kf.init(cfg.keyframes.capacity, cfg.keyframes.points_per_kf, dev)
-        T = scans.xyz.shape[0]
-        poses, added = [], []
-        for i in range(T):
-            scan = pcl.PointCloud(scans.xyz[i], scans.mask[i])
-            state, _ = odometry.step(state, scan, ocfg)
-            store, add = kf.maybe_add(
-                store, scan, state.pose, torch.full((), float(i), device=dev),
-                dist_thresh=cfg.keyframes.dist_thresh, leaf=cfg.keyframes.leaf,
-            )
-            poses.append(state.pose)
-            added.append(add)
-        kf_frames = np.flatnonzero(torch.stack(added).cpu().numpy())
+        if cfg.odometry.frontend == "lio" and imu is not None:
+            poses, store, added = _frontend_lio(scans, imu, cfg, origin, times)
+        else:
+            poses, store, added = _frontend_scan2map(scans, cfg, origin, times)
+        kf_frames = np.flatnonzero(added.cpu().numpy())
         _sync(dev)
     if int(store.count) >= cfg.keyframes.capacity:
         import warnings
@@ -113,10 +187,7 @@ def run_frontend(
             f"keyframe store full ({cfg.keyframes.capacity}); further "
             "keyframes are silently dropped — raise KeyframeCfg.capacity"
         )
-    return RobotResult(
-        odom_poses=se3.stack(poses), store=store,
-        kf_frame_idx=np.asarray(kf_frames, np.int64),
-    )
+    return RobotResult(odom_poses=poses, store=store, kf_frame_idx=np.asarray(kf_frames, np.int64))
 
 
 # --------------------------------------------------------------------------
@@ -250,13 +321,18 @@ def run(
     scans_per_robot: list[pcl.PointCloud],
     cfg: SlamConfig,
     origins: list[Pose] | None = None,
+    imus: list[tuple] | None = None,
+    times_per_robot: list | None = None,
+    *,
     device="cuda",
 ) -> SlamResult:
     """Full multi-robot SLAM: per-robot front-ends, cross/self loop
     search, verification, PCM, chordal PGO, on `device` (the card by
-    default; without CUDA that raises, pass device="cpu"). Scans and
-    origins are moved there. When `origins` is None, overlay
-    `init_pose`s are used."""
+    default; without CUDA that raises, pass device="cpu"). Scans, IMU
+    packets, point times and origins are moved there. When `origins` is
+    None, overlay `init_pose`s are used. `imus`: per-robot IMU packets
+    for robots whose front-end is LIO; `times_per_robot`: per-robot
+    (T, P) point times for motion compensation (`run_frontend`)."""
     from .online import resolve_device
 
     dev = resolve_device(device)
@@ -266,8 +342,10 @@ def run(
         origin = origins[r] if origins else cfg.init_pose(r)
         if origin is not None:
             origin = origin.to(dev)
+        imu = tuple(x.to(dev) for x in imus[r]) if imus else None
+        times = times_per_robot[r].to(dev) if times_per_robot else None
         with obs.tracer.span(f"robot{r}"):  # -> span "robot<r>.frontend"
-            robots.append(run_frontend(scans, cfg.for_robot(r), origin))
+            robots.append(run_frontend(scans, cfg.for_robot(r), origin, imu, times))
     return run_backend(robots, cfg)
 
 

@@ -106,8 +106,15 @@ def test_knn_and_covariances_exact(clouds):
         np.testing.assert_array_equal(cov[b].numpy()[m], np.asarray(jcov)[m])
 
 
-# --------------------------------------------------------------------------
-# loop/bev
+def test_knn_cross_term_is_the_cpu_matmul(clouds):
+    """The k-NN cross term, a float32 FMA chain with exact float64
+    products, is bit-equal to the CPU matmul it replaced, on the clouds
+    RING++'s eigen-feature BEV takes its neighbourhoods from."""
+    q = 2.0 * clouds.xyz[:2]
+    got = tpcl._cross(q, clouds.xyz[:2])
+    want = q @ clouds.xyz[:2].transpose(-1, -2)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 8192, 8192)
+    assert torch.equal(got, want)
 # --------------------------------------------------------------------------
 
 

@@ -39,6 +39,7 @@ def test_port_imports_without_jax():
     assert int(walked[0]) >= 30  # every slice module was walked
     assert set(STREAMING_MODULES) <= set(walked[1:])
     assert set(PLACE_RECOGNITION_MODULES) <= set(walked[1:])
+    assert set(FRONTEND_MODULES) <= set(walked[1:])
 
 
 # the streaming slice: session, store, TF, checkpoint, artifacts, replay
@@ -56,6 +57,13 @@ PLACE_RECOGNITION_MODULES = [
     "mr_slam_torch.loop.ring", "mr_slam_torch.loop.disco", "mr_slam_torch.loop.disco_net",
     "mr_slam_torch.loop.m2dp", "mr_slam_torch.loop.fast_histogram",
     "mr_slam_torch.eval.recall_harness",
+]
+
+
+# the other front-ends: preprocessing, LOAM features, FAST-LIO-style IEKF
+FRONTEND_MODULES = [
+    "mr_slam_torch.frontend.preprocess", "mr_slam_torch.frontend.lio",
+    "mr_slam_torch.frontend.feature_odometry", "mr_slam_torch.ops.features",
 ]
 
 
@@ -79,6 +87,18 @@ def test_chip_smoke_imports_no_jax():
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "mr_slam_tpu")]
     assert not bad, bad
     code = 'import sys; sys.modules["jax"] = None; import chip_smoke; print("ok")'
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_s2m_chaos_imports_no_jax():
+    """The card-side diagnostic of scan2map's rounding spread imports
+    neither JAX nor the reference."""
+    bad = [m for m in _imported_modules(ROOT / "s2m_chaos.py")
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "mr_slam_tpu")]
+    assert not bad, bad
+    code = 'import sys; sys.modules["jax"] = None; import s2m_chaos; print("ok")'
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

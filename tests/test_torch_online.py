@@ -280,24 +280,37 @@ def test_deadline_monitor_counts_as_reference():
 
 
 def test_lio_front_end_raises():
+    """A robot whose resolved config selects the LIO front-end (globally
+    or by overlay) registers with a LIO state; its frames after the first
+    need an IMU packet, and one without raises the reference's
+    ValueError."""
     cfg = config(tcfg)
     lio = dataclasses.replace(cfg, odometry=tcfg.OdometryCfg(frontend="lio"))
-    with pytest.raises(NotImplementedError, match="step 14"):
-        tonline.OnlineSlam(lio, device="cpu").register_robot(0)
+    sess = tonline.OnlineSlam(lio, device="cpu")
+    sess.register_robot(0)
+    assert sess.robots[0]["frontend"] == "lio"
     overlay = dataclasses.replace(cfg, overlays=(
         tcfg.RobotOverlay(robot=1, odometry=tcfg.OdometryCfg(frontend="lio")),))
     sess = tonline.OnlineSlam(overlay, device="cpu")
     sess.register_robot(0)
-    with pytest.raises(NotImplementedError, match="step 14"):
-        sess.register_robot(1)
+    sess.register_robot(1)
+    assert [sess.robots[r]["frontend"] for r in (0, 1)] == ["scan2map", "lio"]
+    cloud = tpcl.PointCloud(torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool))
+    sess.add_frame(1, cloud)  # frame 0 runs no filter step
+    with pytest.raises(ValueError, match="imu"):
+        sess.add_frame(1, cloud, stamp=0.1)
 
 
 @pytest.mark.parametrize("kw", [dict(times=torch.zeros(8)), dict(imu=(None, None, None))])
 def test_times_and_imu_raise(kw):
+    """Per-point times and IMU packets no longer raise on a scan2map
+    robot: times motion-compensate its scan, a packet is ignored, as in
+    the reference."""
     sess = tonline.OnlineSlam(config(tcfg), device="cpu")
     cloud = tpcl.PointCloud(torch.zeros((8, 3)), torch.ones(8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="step 14"):
-        sess.add_frame(0, cloud, **kw)
+    sess.add_frame(0, cloud, **kw)
+    sess.add_frame(0, cloud, stamp=0.1, **kw)
+    assert sess.robots[0]["frame"] == 2 and sess.robots[0]["odo"].frame == 2
 
 
 def test_default_device_is_cuda():

@@ -120,8 +120,10 @@ def test_synthetic_bag_drives_a_session():
         keyframes=tcfg.KeyframeCfg(capacity=8, points_per_kf=512)), device="cpu")
     assert trep.replay(bag, sess) == 8
     assert set(sess.robots) == {0, 1} and all(c >= 1 for c in sess.kf_counts.values())
-    with pytest.raises(NotImplementedError, match="step 14"):
-        trep.synthetic_bag(world, trajs, 2, with_imu=True)
+    imu_bag = trep.synthetic_bag(world, trajs, 2, n_rings=8, n_azimuth=128, with_imu=True,
+                                 imu_sub=5)
+    assert [f.imu is None for f in imu_bag] == [True, True, False, False]
+    assert imu_bag[2].imu[0].shape == (5, 3) and imu_bag[2].imu[2].shape == (5,)
 
 
 def config(m):

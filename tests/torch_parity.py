@@ -67,6 +67,19 @@ def make_scans(world, traj, n_frames, seed=0, n_rings=16, n_azimuth=512):
     )
 
 
+def rest_then_circle(n_rest: int, n: int, **circle) -> tse3.Pose:
+    """`n_rest` frames standing at the circle's first pose, then the
+    circle's `n` frames: a LIO filter starts at rest (v = 0), so its
+    truth must too (the reference's undistortion tests do the same)."""
+    c = synthetic.circle_trajectory(n, **circle)
+    return tse3.Pose(torch.cat([c.R[:1].expand(n_rest, 3, 3), c.R]),
+                     torch.cat([c.t[:1].expand(n_rest, 3), c.t]))
+
+
+def imu_to_jax(imu):
+    return tuple(to_jax(x) for x in imu)
+
+
 def jitter(pc: tpcl.PointCloud, sigma: float, seed: int) -> tpcl.PointCloud:
     """Add isotropic N(0, sigma^2) noise to every valid point. The
     raycaster's beams at azimuth 0 and +-pi/2 put whole columns of
@@ -95,6 +108,59 @@ def structured_cloud(seed: int, n: int = 2048) -> tpcl.PointCloud:
     xyz = np.concatenate([ground, wall1, wall2], axis=0)
     xyz = (xyz + 0.01 * rng.standard_normal(xyz.shape)).astype(np.float32)
     return tpcl.PointCloud(torch.from_numpy(xyz), torch.ones(xyz.shape[0], dtype=torch.bool))
+
+
+def room(seed: int, n_plane: int, n_line: int):
+    """(planar points, line points) as CPU tensors: a floor, two walls
+    and four poles within 10 m of the origin, 5 mm of noise. Near the
+    origin a point-to-plane / point-to-line GN system is well
+    conditioned; on a scan's points 25 m out one ulp of summation order
+    moves its fixed point by millimetres."""
+    rng = np.random.default_rng(seed)
+    h = n_plane // 2
+    floor = np.c_[rng.uniform(-10, 10, (n_plane, 2)), np.zeros(n_plane)]
+    wall1 = np.c_[rng.uniform(-10, 10, h), np.full(h, 8.0), rng.uniform(0, 4, h)]
+    wall2 = np.c_[np.full(h, -9.0), rng.uniform(-10, 10, h), rng.uniform(0, 4, h)]
+    poles = [np.c_[np.full((n_line, 2), p), rng.uniform(1.5, 6.0, n_line)]
+             for p in ((3.0, 3.0), (-4.0, 5.0), (5.0, -6.0), (-6.0, -3.0))]
+    planes = np.concatenate([floor, wall1, wall2])
+    lines = np.concatenate(poles)
+    return [torch.from_numpy((x + 0.005 * rng.standard_normal(x.shape)).astype(np.float32))
+            for x in (planes, lines)]
+
+
+def rot_diff_deg(Ra, Rb) -> float:
+    """Angle of Ra Rb^T in degrees from its skew part, in float64: exact
+    for small angles, where the trace's arccos (`rot_err_deg`) loses
+    ~0.03 degrees to float32 orthonormality."""
+    M = np.asarray(Ra, np.float64) @ np.asarray(Rb, np.float64).T
+    w = np.array([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]]) / 2.0
+    return float(np.degrees(np.arcsin(min(np.linalg.norm(w), 1.0))))
+
+
+def grid_to_jax(g):
+    from mr_slam_tpu.ops import voxel_grid as jvg
+
+    return jvg.VoxelGrid(to_jax(g.packed), to_jax(np.float32(g.leaf)))
+
+
+def lio_state_to_jax(s):
+    """A port `LioState` as the reference's (the host frame count as its
+    int32 scalar)."""
+    import jax.numpy as jnp
+    from mr_slam_tpu.frontend import lio as jlio
+
+    arrays = {f: to_jax(getattr(s, f)) for f in s._fields if f not in ("grid", "frame")}
+    return jlio.LioState(**arrays, grid=grid_to_jax(s.grid), frame=jnp.int32(s.frame))
+
+
+def lio_state_to_torch(s):
+    from mr_slam_torch.frontend import lio as tlio
+    from mr_slam_torch.ops import voxel_grid as tvg
+
+    tensors = {f: to_torch(getattr(s, f)) for f in s._fields if f not in ("grid", "frame")}
+    return tlio.LioState(**tensors, grid=tvg.VoxelGrid(to_torch(s.grid.packed), float(s.grid.leaf)),
+                         frame=int(s.frame))
 
 
 def rot_err_deg(Ra, Rb) -> float:
@@ -265,3 +331,156 @@ def recall_reference():
                                          min_separation=chip_smoke.RECALL_MIN_SEP,
                                          max_n=chip_smoke.RECALL_MAX_N).recall_at_n[0])
             for m in chip_smoke.DESC_METHODS}
+
+
+# --------------------------------------------------------------------------
+# the references behind `chip_smoke.JAX_REF_LIO_*`, `JAX_REF_S2M_*`, `JAX_REF_FEAT`
+# --------------------------------------------------------------------------
+
+
+def lio_reference(part: str = "all"):
+    """The reference's runs (JAX on the CPU) over the inputs of
+    `chip_smoke.py` phase 9 (`chip_smoke.lio_scenario`). `part`: "lio"
+    (the LIO `pipeline.run` with IMU packets and point times: per-robot
+    keyframe ATE in m and inter-robot loops), "s2m" (the odometry ATE
+    of scan2map on the start-sheared scans with point times, per copy of
+    the scans moved by +-1 ulp, `chip_smoke.ulp_moved`, and robot, then
+    the median per robot; with it "s2m_raw", without the times),
+    "online" (the LIO session fed by `synthetic_bag(with_imu=True)`:
+    per-robot keyframe ATE), "feat"
+    (feature odometry over robot 0's range images: ATE and final error),
+    or "all". Run from the repository root, one part per process if the
+    CPU is shared (each takes minutes):
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import lio_reference; \\
+            print(lio_reference('lio'))"
+    """
+    import chip_smoke
+    from mr_slam_tpu.runtime import config as jcfg
+    from mr_slam_tpu.runtime import pipeline as jpipe
+
+    out = {}
+    base = chip_smoke.smoke_config()
+    if part in ("lio", "s2m", "online", "all"):
+        sc = chip_smoke.lio_scenario()
+        origins = [pose_to_jax(tse3.index(t, 0)) for t in sc["trajs"]]
+
+    def kf_ates(res):
+        from mr_slam_tpu.eval import metrics as jmet
+
+        return tuple(
+            float(jmet.ate(res.optimized_trajectory(r), pose_to_jax(
+                tse3.index(sc["trajs"][r], torch.as_tensor(res.robots[r].kf_frame_idx)))).rmse)
+            for r in range(len(sc["trajs"])))
+
+    if part in ("lio", "all"):
+        lcfg = jcfg.SlamConfig.from_json(chip_smoke.lio_config(base).to_json())
+        res = jpipe.run([cloud_to_jax(s) for s in sc["lio"]], lcfg, origins=origins,
+                        imus=[imu_to_jax(i) for i in sc["imus"]],
+                        times_per_robot=[to_jax(t) for t in sc["lio_times"]])
+        out["lio"] = (kf_ates(res), sum(l["robot_a"] != l["robot_b"] for l in res.loops))
+    if part in ("s2m", "all"):
+        scfg = jcfg.SlamConfig.from_json(base.to_json())
+
+        def odo_ate(r, seed, times):
+            rr = jpipe.run_frontend(cloud_to_jax(chip_smoke.ulp_moved(sc["s2m"][r], seed, "cpu")),
+                                    scfg.for_robot(r), origins[r],
+                                    times=None if times is None else to_jax(times[r]))
+            return chip_smoke.positions_ate(np.asarray(rr.odom_poses.t), sc["trajs"][r])
+
+        R = len(sc["trajs"])
+        copies = tuple(tuple(odo_ate(r, seed, sc["s2m_times"]) for r in range(R))
+                       for seed in range(chip_smoke.S2M_ULP_COPIES + 1))
+        out["s2m"] = (copies, tuple(float(np.median([c[r] for c in copies])) for r in range(R)))
+        out["s2m_raw"] = tuple(odo_ate(r, 0, None) for r in range(R))
+    if part in ("online", "all"):
+        from mr_slam_torch.datasets import replay as trep
+        from mr_slam_tpu.datasets import replay as jrep
+        from mr_slam_tpu.runtime import online as jonline
+
+        frames = trep.synthetic_bag(synthetic.default_world(chip_smoke.LIO_WORLD), sc["trajs"],
+                                    chip_smoke.LIO_FRAMES, n_rings=chip_smoke.RINGS,
+                                    n_azimuth=chip_smoke.AZIMUTH, with_imu=True,
+                                    imu_sub=chip_smoke.LIO_IMU_SUB)
+        ocfg = chip_smoke.online_config(chip_smoke.lio_config(base))
+        sess = jonline.OnlineSlam(jcfg.SlamConfig.from_json(ocfg.to_json()))
+        jrep.replay([jrep.Frame(stamp=f.stamp, robot=f.robot, scan=cloud_to_jax(f.scan),
+                                origin=None if f.origin is None else pose_to_jax(f.origin),
+                                imu=None if f.imu is None else imu_to_jax(f.imu)) for f in frames],
+                    sess)
+        res = sess.result()
+        opt_t = np.asarray(res.opt_poses.t)
+        out["online"] = tuple(
+            chip_smoke.online_ate((np.asarray(res.robots[r].store.stamps),
+                                   int(res.robots[r].store.count)), opt_t, res.node_of[r],
+                                  sc["trajs"][r], r)
+            for r in range(len(sc["trajs"])))
+    if part in ("feat", "all"):
+        from mr_slam_tpu.frontend import feature_odometry as jfo
+        from mr_slam_tpu.frontend import odometry as jodo
+
+        traj, clean = chip_smoke.feature_scenario()
+        xyz, hit = chip_smoke.range_images(clean, "cpu")
+        _, poses, _ = jfo.run(to_jax(xyz), to_jax(hit), jodo.OdometryConfig(),
+                              pose_to_jax(tse3.index(traj, 0)))
+        out["feat"] = (chip_smoke.positions_ate(np.asarray(poses.t), traj),
+                       float(np.linalg.norm(np.asarray(poses.t[-1]) - traj.t[-1].numpy())))
+    return out
+
+
+def s2m_ulp_reference(robots=(0, 1, 2), seeds=range(9), frames=None, laps=None):
+    """The reference's side of `s2m_chaos.py ensemble` (JAX on the CPU):
+    scan2map `run_frontend` with point times on `chip_smoke.lio_scenario`'s
+    start-sheared scans as given (seed 0) and moved by +-1 ulp
+    (`chip_smoke.ulp_moved`), on the road reshaped to `frames` / `laps`
+    when they are given. Returns {(robot, seed): (odometry ATE, largest
+    error, its frame)}:
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import s2m_ulp_reference; \\
+            print(s2m_ulp_reference((2,), range(12), 28, 0.48))"
+    """
+    import chip_smoke
+    from mr_slam_tpu.runtime import config as jcfg
+    from mr_slam_tpu.runtime import pipeline as jpipe
+
+    if frames is not None:
+        chip_smoke.LIO_FRAMES, chip_smoke.LIO_LAPS = frames, laps
+    sc = chip_smoke.lio_scenario()
+    cfg = jcfg.SlamConfig.from_json(chip_smoke.smoke_config().to_json())
+    out = {}
+    for r in robots:
+        traj = sc["trajs"][r]
+        for seed in seeds:
+            rr = jpipe.run_frontend(cloud_to_jax(chip_smoke.ulp_moved(sc["s2m"][r], seed, "cpu")),
+                                    cfg.for_robot(r), pose_to_jax(tse3.index(traj, 0)),
+                                    times=to_jax(sc["s2m_times"][r]))
+            est = np.asarray(rr.odom_poses.t)
+            e = np.linalg.norm(est - traj.t.numpy(), axis=-1)
+            out[(r, seed)] = (chip_smoke.positions_ate(est, traj), float(e.max()), int(e.argmax()))
+    return out
+
+
+def lio_phase5_reference():
+    """The reference's LIO `pipeline.run` (JAX on the CPU) on phase 5's
+    road instead of phase 9's: `chip_smoke.lio_scenario` over the
+    trajectories of `chip_smoke.scenario()` in its world, phase 9's LIO
+    config. Returns (keyframe ATE, odometry ATE) per robot in m and the
+    inter-robot loops; the reason phase 9 has a road of its own."""
+    import chip_smoke
+    from mr_slam_tpu.eval import metrics as jmet
+    from mr_slam_tpu.runtime import config as jcfg
+    from mr_slam_tpu.runtime import pipeline as jpipe
+
+    trajs, _, base = chip_smoke.scenario()
+    sc = chip_smoke.lio_scenario(chip_smoke.WORLD_SEED, trajs)
+    cfg = jcfg.SlamConfig.from_json(chip_smoke.lio_config(base).to_json())
+    res = jpipe.run([cloud_to_jax(s) for s in sc["lio"]], cfg,
+                    origins=[pose_to_jax(tse3.index(t, 0)) for t in trajs],
+                    imus=[imu_to_jax(i) for i in sc["imus"]],
+                    times_per_robot=[to_jax(t) for t in sc["lio_times"]])
+    kf = tuple(float(jmet.ate(res.optimized_trajectory(r), pose_to_jax(
+        tse3.index(t, torch.as_tensor(res.robots[r].kf_frame_idx)))).rmse)
+        for r, t in enumerate(trajs))
+    odo = tuple(chip_smoke.positions_ate(np.asarray(rr.odom_poses.t), t)
+                for rr, t in zip(res.robots, trajs))
+    return kf, odo, sum(l["robot_a"] != l["robot_b"] for l in res.loops)
