@@ -15,12 +15,15 @@ Layout (the reference's, slice by slice):
              `csrc/vgicp_accum.cu`)
   frontend/  scan-to-map odometry, the FAST-LIO-style IEKF, A-LOAM
              feature odometry, sensor preprocessing, keyframe gating
-  loop/      place descriptors (ScanContext, RING / RING++, DiSCO and the
-             DiscoNet forward pass, M2DP, FastHistogram)
+  loop/      place descriptors (ScanContext, RING / RING++, DiSCO and
+             DiscoNet with its training, M2DP, FastHistogram)
   backend/   factor graph, PCM gating, chordal PGO
   runtime/   config, loop stage, end-to-end pipeline, tracing
-  eval/      ATE, RPE, recall@N and the recall harness
-  datasets/  synthetic multi-robot worlds (numpy raycaster)
+  eval/      ATE, RPE, recall@N and the recall harness, the pose-graph
+             generator, the independent reference solver, plots
+  datasets/  synthetic multi-robot worlds (a numpy raycaster per frame,
+             a batched one on the device)
+  examples/  the end-to-end demo (`python -m mr_slam_torch.examples.demo_synthetic`)
 """
 from . import precision as _precision
 

@@ -1,13 +1,14 @@
 """Pairwise Consistency Maximization inter-robot loop gating (port of
 `mr_slam_tpu/backend/pcm.py`: `consistency_matrix`, `filter_loops`,
-`max_clique`).
+`max_clique`, `max_clique_greedy`, `intra_cycle_distances`).
 
 Two loops are consistent when the cycle
 Z_k^-1 (x_{a_k}^-1 x_{a_l}) Z_l (x_{b_l}^-1 x_{b_k}) is near identity
 under a Mahalanobis norm; the largest mutually-consistent subset is the
 maximum clique of the consistency graph. The (L, L) matrix is one
 broadcast pose-algebra op on the device; the clique runs on the host in
-the native solver (`mr_slam_torch/native.py`), which must build.
+the native solver (`mr_slam_torch/native.py`), which must build: the
+greedy heuristic is a function of its own, never a fallback.
 """
 from __future__ import annotations
 
@@ -77,6 +78,34 @@ def max_clique(adj: np.ndarray) -> np.ndarray:
     return native.max_clique(np.asarray(adj, bool))
 
 
+def max_clique_greedy(adj: np.ndarray, restarts: int = 32, seed: int = 0) -> np.ndarray:
+    """Heuristic maximum clique on a boolean adjacency matrix (host):
+    greedy by degree, then `restarts - 1` greedy passes in random vertex
+    orders from `default_rng(seed)` (the flavour of the reference's
+    `findCliqueHeu.cpp`). Returns the sorted indices of the largest
+    clique found (the first found among equals)."""
+    n = adj.shape[0]
+    if n == 0:
+        return np.zeros((0,), np.int64)
+    adj = np.asarray(adj, bool).copy()
+    np.fill_diagonal(adj, False)
+    rng = np.random.default_rng(seed)
+    best = np.zeros((0,), np.int64)
+    degrees = adj.sum(1)
+    for it in range(restarts):
+        order = np.argsort(-degrees) if it == 0 else rng.permutation(n)
+        clique: list[int] = []
+        cand = np.ones(n, bool)
+        for v in order:
+            if cand[v]:
+                clique.append(v)
+                cand &= adj[v]
+        c = np.array(sorted(clique), np.int64)
+        if len(c) > len(best):
+            best = c
+    return best
+
+
 def filter_loops(
     poses_a: Pose,
     poses_b: Pose,
@@ -110,3 +139,32 @@ def filter_loops(
     if v.sum() == 1:
         keep = v.copy()
     return keep
+
+
+def intra_cycle_distances(
+    poses: Pose,            # (L,) odometry poses at kf_a (same robot)
+    poses_b: Pose,          # (L,) odometry poses at kf_b
+    meas: Pose,             # (L,) loop measurements: b-frame <- a-frame
+    idx_a: torch.Tensor,    # (L,) keyframe indices
+    idx_b: torch.Tensor,
+    trans_sigma: float = 0.5,
+    rot_sigma: float = 0.1,
+    odo_drift_t: float = 0.02,
+    odo_drift_r: float = 0.002,
+    step_len: float = 0.0,
+) -> torch.Tensor:
+    """(L,) single-loop odometry-cycle consistency of SAME-robot loops,
+    || log(Z^-1 (x_a^-1 x_b)) ||^2 under `consistency_matrix`'s
+    drift-aware cycle covariance: the odometry-space sanity gate for
+    loops that never enter PCM."""
+    odo = se3.between(poses, poses_b)
+    xi = se3.log(se3.compose(se3.inverse(meas), odo))
+    steps = torch.abs(idx_a - idx_b).to(torch.float32)
+    lever2 = torch.sum(odo.t ** 2, dim=-1)
+    var_t = (
+        trans_sigma**2 + steps * odo_drift_t**2
+        + steps * odo_drift_r**2 * lever2
+        + odo_drift_r**2 * step_len**2 * steps**3 / 3.0
+    )
+    var_r = rot_sigma**2 + steps * odo_drift_r**2
+    return torch.sum(xi[..., 0:3] ** 2, dim=-1) / var_t + torch.sum(xi[..., 3:6] ** 2, dim=-1) / var_r

@@ -1,14 +1,14 @@
 """Synthetic multi-robot lidar worlds with analytic raycasting (port of
-`mr_slam_tpu/datasets/synthetic.py`: `World`, `default_world`,
-`circle_trajectory`, `scan`, `scan_to_cloud`, `imu_for_trajectory`,
-`shear_scan`).
+`mr_slam_tpu/datasets/synthetic.py`, every function of it).
 
-Data generation runs on the host in numpy and returns CPU tensors;
-callers move them to their device (`imu_for_trajectory` and
-`shear_scan` work on the device of their input). Random draws come from numpy
-`default_rng(seed)`, so a world or a noise draw differs from the
-reference's (`jax.random`) for the same seed: parity tests build a world
-and its scans once here and hand the same arrays to both packages.
+Worlds, trajectories and single scans are made on the host in numpy and
+returned as CPU tensors; `scan_batch` raycasts a whole trajectory on the
+device of its poses, and `imu_for_trajectory`, `perturb_trajectory` and
+`shear_scan` work on the device of their input. Random draws come from
+numpy `default_rng(seed)` generators, so a world or a noise draw differs
+from the reference's (`jax.random`) for the same seed: parity tests
+build a world and its scans once here and hand the same arrays to both
+packages.
 """
 from __future__ import annotations
 
@@ -109,6 +109,52 @@ def scan(
     return torch.from_numpy(pts_b), torch.from_numpy(rng_t), torch.from_numpy(hit)
 
 
+def scan_batch(
+    world: World,
+    poses: Pose,
+    n_rings: int = 32,
+    n_azimuth: int = 512,
+    max_range: float = 80.0,
+    sensor_height: float = 0.8,
+    noise: float = 0.01,
+    rng: np.random.Generator | None = None,
+) -> PointCloud:
+    """Raycast a whole trajectory (T,) at once on the device of `poses`:
+    `scan` + `scan_to_cloud` for every pose, stacked as xyz (T, R*A, 3),
+    mask (T, R*A). The range noise is drawn from `rng` as one (T, R, A)
+    block, the draws `scan` makes frame by frame from the same
+    generator."""
+    dev = poses.t.device
+    T = poses.t.shape[0]
+    R = poses.R.to(torch.float32)
+    t = poses.t.to(torch.float32)
+    dirs = torch.from_numpy(_ray_dirs(n_rings, n_azimuth)).to(dev)          # (Ra, A, 3)
+    dirs_w = torch.einsum("raj,tij->trai", dirs, R)                         # (T, Ra, A, 3)
+    up = torch.tensor([0.0, 0.0, sensor_height], dtype=torch.float32, device=dev)
+    o = (t + R @ up)[:, None, None, :]                                      # (T, 1, 1, 3)
+    dz = dirs_w[..., 2]
+    t_ground = torch.where(dz < -1e-6, -o[..., 2] / dz, torch.inf)
+    inv_d = 1.0 / torch.where(torch.abs(dirs_w) < 1e-9, 1e-9, dirs_w)
+    boxes = torch.from_numpy(world.boxes).to(dev)
+    t_box = torch.full(dz.shape, torch.inf, device=dev)
+    for m in range(boxes.shape[0]):  # slab test, one box at a time over the whole batch
+        t0 = (boxes[m, 0] - o) * inv_d
+        t1 = (boxes[m, 1] - o) * inv_d
+        tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
+        tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
+        hit_box = (tmax >= torch.clamp(tmin, min=1e-3)) & (tmin > 1e-3)
+        t_box = torch.minimum(t_box, torch.where(hit_box, tmin, torch.inf))
+    rng_t = torch.minimum(t_ground, t_box)
+    hit = torch.isfinite(rng_t) & (rng_t <= max_range) & (rng_t > 0.5)
+    rng_t = torch.where(hit, rng_t, max_range)
+    if rng is not None:
+        draw = rng.standard_normal((T, n_rings, n_azimuth))
+        rng_t = rng_t + noise * torch.from_numpy(draw.astype(np.float32)).to(dev)
+    pts_w = o + rng_t[..., None] * dirs_w
+    pts_b = torch.einsum("trai,tij->traj", pts_w - t[:, None, None, :], R)
+    return park(PointCloud(pts_b.reshape(T, -1, 3), hit.reshape(T, -1)))
+
+
 def scan_to_cloud(xyz_body: torch.Tensor, hit: torch.Tensor) -> PointCloud:
     """Flatten a range image into a masked cloud."""
     return park(PointCloud(xyz_body.reshape(-1, 3), hit.reshape(-1)))
@@ -132,6 +178,52 @@ def circle_trajectory(
     yaw = torch.from_numpy(ang + np.float32(s * np.pi / 2))  # tangent heading
     t = np.stack([x, y, np.full_like(x, z)], axis=-1).astype(np.float32)
     return Pose(so3.yaw_rot(yaw), torch.from_numpy(t))
+
+
+def multi_robot_trajectories(
+    n_robots: int, n_frames: int, radius: float = 30.0, extent: float = 60.0
+) -> Pose:
+    """(n_robots, n_frames) poses on one ring road, robot r starting at
+    phase 2 pi r / n_robots and alternating direction, so robots
+    traverse shared regions (inter-robot loop closures exist)."""
+    trajs = [
+        circle_trajectory(n_frames, radius=radius, phase=2 * np.pi * r / max(n_robots, 1),
+                          ccw=(r % 2 == 0))
+        for r in range(n_robots)
+    ]
+    return Pose(torch.stack([t.R for t in trajs]), torch.stack([t.t for t in trajs]))
+
+
+def _perturb_with(traj: Pose, dt: torch.Tensor, dw: torch.Tensor) -> Pose:
+    """`traj` (T,) re-integrated from its relative motions with the
+    translation noise `dt` (T-1, 3) added and the rotation noise
+    exp(`dw`) (T-1, 3) applied on the left of each relative rotation,
+    from the first pose on."""
+    n = traj.t.shape[0]
+    rel = se3.between(se3.index(traj, slice(0, n - 1)), se3.index(traj, slice(1, n)))
+    step_t = rel.t + dt
+    step_R = so3.exp(dw) @ rel.R
+    cur = se3.index(traj, 0)
+    Rs, ts = [cur.R], [cur.t]
+    for k in range(n - 1):
+        cur = se3.compose(cur, Pose(step_R[k], step_t[k]))
+        Rs.append(cur.R)
+        ts.append(cur.t)
+    return Pose(torch.stack(Rs), torch.stack(ts))
+
+
+def perturb_trajectory(traj: Pose, trans_sigma: float = 0.02, rot_sigma: float = 0.002,
+                       rng: np.random.Generator | None = None) -> Pose:
+    """Integrate noisy relative motions — odometry drift with exact
+    ground truth for ATE. The translation, then the rotation noise
+    (T-1, 3) are drawn from `rng` (a fresh `default_rng(0)` if None)."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    n = traj.t.shape[0]
+    dev = traj.t.device
+    dt = trans_sigma * rng.standard_normal((n - 1, 3))
+    dw = rot_sigma * rng.standard_normal((n - 1, 3))
+    return _perturb_with(traj, torch.from_numpy(dt.astype(np.float32)).to(dev),
+                         torch.from_numpy(dw.astype(np.float32)).to(dev))
 
 
 def imu_for_trajectory(

@@ -1,5 +1,6 @@
 """Batched SE(3) poses as an (R, t) NamedTuple (port of
-`mr_slam_tpu/geometry/se3.py`). Every op broadcasts over leading dims."""
+`mr_slam_tpu/geometry/se3.py`, every function of it). Every op
+broadcasts over leading dims."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -25,11 +26,38 @@ class Pose(NamedTuple):
     def to(self, device) -> "Pose":
         return Pose(self.R.to(device), self.t.to(device))
 
+    def matrix(self) -> torch.Tensor:
+        """(..., 4, 4) homogeneous matrix."""
+        top = torch.cat([self.R, self.t[..., :, None]], dim=-1)
+        bottom = torch.zeros_like(top[..., :1, :])
+        bottom[..., 0, 3] = 1.0
+        return torch.cat([top, bottom], dim=-2)
+
 
 def identity(batch_shape=(), dtype=torch.float32, device=None) -> Pose:
     R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3).clone()
     t = torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
     return Pose(R, t)
+
+
+def from_matrix(T: torch.Tensor) -> Pose:
+    """(..., 4, 4) homogeneous matrix -> Pose."""
+    return Pose(T[..., :3, :3], T[..., :3, 3])
+
+
+def from_rt(R: torch.Tensor, t: torch.Tensor) -> Pose:
+    return Pose(R, t)
+
+
+def from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> Pose:
+    """q = (..., 4) [w, x, y, z]."""
+    return Pose(so3.quat_to_rot(q), t)
+
+
+def from_xyzrpy(v: torch.Tensor) -> Pose:
+    """(..., 6) [x, y, z, roll, pitch, yaw], the reference's
+    PointTypePose layout."""
+    return Pose(so3.rpy_to_rot(v[..., 3:6]), v[..., 0:3])
 
 
 def _mv(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -93,6 +121,13 @@ def log(p: Pose) -> torch.Tensor:
     eye = torch.eye(3, dtype=phi.dtype, device=phi.device).expand(W.shape)
     Vinv = eye - 0.5 * W + cot_term[..., None, None] * (W @ W)
     return torch.cat([_mv(Vinv, p.t), phi], dim=-1)
+
+
+def interpolate(a: Pose, b: Pose, alpha: torch.Tensor) -> Pose:
+    """Geodesic interpolation a * exp(alpha * log(a^-1 b)); alpha has
+    the poses' batch shape."""
+    d = log(between(a, b))
+    return compose(a, exp(alpha[..., None] * d))
 
 
 def normalize(p: Pose) -> Pose:

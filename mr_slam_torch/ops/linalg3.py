@@ -1,7 +1,7 @@
 """Closed-form batched 3x3 symmetric linear algebra, and the small PSD
 solves of the Gauss-Newton and IEKF updates (port of
-`mr_slam_tpu/ops/linalg3.py`: `det3`, `inv3`, `eigvalsh3`, `eigh3`,
-`solve_psd`, `inv_psd_scaled`, `solve_psd_scaled`).
+`mr_slam_tpu/ops/linalg3.py`: `det3`, `inv3`, `solve3`, `eigvalsh3`,
+`eigh3`, `plane_fit`, `solve_psd`, `inv_psd_scaled`, `solve_psd_scaled`).
 
 The same analytic formulas as the reference, element-wise over any batch
 shape. `torch.linalg.eigh` is not used: it orders and signs degenerate
@@ -50,6 +50,11 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
     return adj * inv_det[..., None, None]
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve (..., 3, 3) @ x = (..., 3) through the adjugate inverse."""
+    return (inv3(A) @ b[..., None])[..., 0]
 
 
 def eigvalsh3(A: torch.Tensor) -> torch.Tensor:
@@ -125,6 +130,25 @@ def eigh3(A: torch.Tensor):
     v1 = _cross(v2f, v0)
     V = torch.stack([v0, v1, v2f], dim=-1)
     return w, V
+
+
+def plane_fit(points: torch.Tensor, weights: torch.Tensor | None = None):
+    """Least-squares plane through (..., K, 3) points: (normal (..., 3)
+    unit, d (...,), mean (..., 3)) with plane n.x + d = 0 (FAST-LIO's
+    `esti_plane`, A-LOAM's surf fit). The weighted moments sum over K
+    in index order, as the reference's reductions do."""
+    if weights is None:
+        weights = torch.ones(points.shape[:-1], dtype=points.dtype, device=points.device)
+    wsum = torch.clamp(torch.sum(weights, dim=-1, keepdim=True), min=_EPS)
+    mean = torch.sum(points * weights[..., None], dim=-2) / wsum
+    c = points - mean[..., None, :]
+    d = c * weights[..., None]
+    cov = d[..., 0, :, None] * c[..., 0, None, :]
+    for k in range(1, points.shape[-2]):
+        cov = cov + d[..., k, :, None] * c[..., k, None, :]
+    _, V = eigh3(cov)
+    normal = V[..., :, 0]  # the smallest-eigenvalue direction
+    return normal, -torch.sum(normal * mean, dim=-1), mean
 
 
 def solve_psd(A: torch.Tensor, b: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

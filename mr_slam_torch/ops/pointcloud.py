@@ -198,7 +198,10 @@ def _order_key(d2: torch.Tensor) -> torch.Tensor:
 def _knn_one(query: torch.Tensor, xyz: torch.Tensor, mask: torch.Tensor, k: int):
     d2 = _sum_sq(query)[..., None] + _sum_sq(xyz)[..., None, :] - _cross(2.0 * query, xyz)
     d2 = torch.where(mask[..., None, :], d2, torch.inf)
-    idx = torch.topk(_order_key(d2), k, dim=-1, largest=False, sorted=True).indices
+    if k == 1:  # argmin returns the first of equal minima: the key's order
+        idx = torch.argmin(d2, dim=-1, keepdim=True)
+    else:
+        idx = torch.topk(_order_key(d2), k, dim=-1, largest=False, sorted=True).indices
     return torch.clamp(torch.gather(d2, -1, idx), min=0.0), idx
 
 

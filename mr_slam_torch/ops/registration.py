@@ -1,5 +1,6 @@
-"""Point-cloud registration: VGICP and point-to-plane ICP (port of the
-main-path part of `mr_slam_tpu/ops/registration.py`).
+"""Point-cloud registration: VGICP, point-to-plane / point-to-point ICP,
+GICP, LOAM feature ICP and the method selector (port of
+`mr_slam_tpu/ops/registration.py`).
 
 Correspondences come from `VoxelGrid` gathers; each Gauss-Newton step
 accumulates a 6x6 system, solves it with the unrolled LDL^T and retracts
@@ -11,9 +12,13 @@ launches it once on a CUDA tensor with the pose applied inside.
 
 Ported: `RegistrationResult`, `_gn_update`, `_uncenter`, `_select_best`,
 `_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B),
-`vgicp` (direct1 without source covariances only), `point_to_plane_icp`,
+`vgicp` (batched; direct1 without source covariances runs the kernel,
+every other case the general matrix path), `point_to_plane_icp`,
 `loam_icp` (with `pooled_moments`, shared with the LIO update; the
-reference's `so3_hat` is `so3.hat`) and `fitness`.
+reference's `so3_hat` is `so3.hat`), `point_to_point_icp`,
+`_regularized_covs`, `gicp`, `fitness` and `register_pair`. The
+reference's `_gn_terms_direct1` is the kernel's hash mode
+(`hopper_vgicp.gn_accumulate` without `slot=`).
 """
 from __future__ import annotations
 
@@ -107,19 +112,80 @@ def vgicp(
     schedule: tuple | None = None,
 ) -> RegistrationResult:
     """Voxelized GICP against a Gaussian voxel map, batched: source
-    (B, N, 3), target (B, H, 16), init (B,). Only the loop-verification
-    configuration is ported — direct1 neighbours without source
-    covariances (the reference's fused `_vgicp_direct1` path). Any other
-    combination raises, including a `schedule` off direct1, which the
-    reference silently ignores there."""
-    if source_covs is not None or neighbors != "direct1":
-        raise NotImplementedError(
-            "only direct1 VGICP without source covariances is ported"
-            + (" (schedule applies to direct1 only)" if schedule is not None else "")
+    (B, N, 3), target (B, H, 16), init (B,), source_covs (B, N, 3, 3).
+
+    Per point p with covariance Cp matched to voxel (mu, Cv):
+    r = mu - (R p + t), W = (Cv + R Cp R^T + 1e-6 I)^-1, cost r^T W r,
+    J = [-I | hat(R p + t)]. Direct1 neighbours without source
+    covariances (the loop-verification setup) take the fused
+    `_vgicp_direct1` path and its Hopper kernel; every other case the
+    general path, which matches each point to its nearest valid cell
+    among the `neighbors` offsets. A `schedule` applies to the fused
+    path only: with source covariances or other neighbours it raises
+    (the reference ignores it there)."""
+    if source_covs is None and neighbors == "direct1":
+        return _vgicp_direct1(
+            source, target, init, iters=iters, max_corr_dist=max_corr_dist,
+            damping=damping, tol=tol, schedule=schedule,
         )
-    return _vgicp_direct1(
-        source, target, init, iters=iters, max_corr_dist=max_corr_dist,
-        damping=damping, tol=tol, schedule=schedule,
+    if schedule is not None:
+        raise NotImplementedError(
+            "schedule applies to direct1 VGICP without source covariances only")
+    return _vgicp_general(source, target, init, source_covs, iters=iters,
+                          max_corr_dist=max_corr_dist, damping=damping, tol=tol,
+                          neighbors=neighbors)
+
+
+def _left_jacobian(tp: torch.Tensor, sign: float) -> torch.Tensor:
+    """(..., N, 3, 6) Jacobians [sign I | -sign hat(tp)] of the residual
+    sign (R p + t) - target under a left se(3) update."""
+    eye = torch.eye(3, dtype=tp.dtype, device=tp.device).expand(*tp.shape, 3)
+    return torch.cat([sign * eye, -sign * so3.hat(tp)], dim=-1)
+
+
+def _vgicp_general(
+    source: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    source_covs: torch.Tensor | None,
+    iters: int,
+    max_corr_dist: float,
+    damping: float,
+    tol: float,
+    neighbors: str,
+) -> RegistrationResult:
+    """The general matrix path of `vgicp`, batched over a leading B."""
+    max_corr2 = _f32_square(max_corr_dist)
+    xyz = source.xyz
+    eye3 = torch.eye(3, dtype=xyz.dtype, device=xyz.device)
+    if source_covs is None:
+        source_covs = torch.zeros((*xyz.shape, 3), dtype=xyz.dtype, device=xyz.device)
+    pose = init
+    for _ in range(iters):
+        tp = se3.apply(pose, xyz)                                      # (B, N, 3)
+        found, _, mu, Cv = voxel_grid.lookup(target, tp, neighbors)
+        # the nearest valid neighbour cell per point (first on ties)
+        d2 = torch.where(found, torch.sum((mu - tp[..., :, None, :]) ** 2, dim=-1), torch.inf)
+        d2_b, best = torch.min(d2, dim=-1)
+        mu_b, Cv_b = _select_best(best, mu, Cv)
+        w = (source.mask & torch.isfinite(d2_b) & (d2_b < max_corr2)).to(torch.float32)
+        Rb = pose.R[..., None, :, :]
+        W = linalg3.inv3(Cv_b + Rb @ source_covs @ Rb.transpose(-1, -2) + 1e-6 * eye3)
+        r = mu_b - tp
+        J = _left_jacobian(tp, -1.0)                                   # [-I | hat(tp)]
+        WJ = W @ J
+        H = torch.einsum("...nij,...nik,...n->...jk", J, WJ, w)
+        b = -torch.einsum("...nij,...ni,...n->...j", WJ, r, w)
+        dx = _gn_update(H + 1e-6 * _eye6(H), b, damping)
+        pose = se3.compose(se3.exp(dx), pose)
+        last_dx = torch.linalg.norm(dx, dim=-1)
+        n_in = torch.sum(w, dim=-1)
+        cost = torch.sum(torch.einsum("...ni,...nij,...nj->...n", r, W, r) * w, dim=-1) \
+            / torch.clamp(n_in, min=1.0)
+    fit = fitness(source, target, pose, max_range=1.0)
+    return RegistrationResult(
+        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
+        converged=last_dx < tol,
     )
 
 
@@ -334,6 +400,113 @@ def loam_icp(
     )
 
 
+def _nearest(tp: torch.Tensor, target: PointCloud):
+    """(d2 (..., N), idx (..., N), matched points (..., N, 3)): the
+    nearest target point of each query, lower index first on ties."""
+    from . import pointcloud
+
+    d2, idx = pointcloud.knn(tp, target, 1)
+    j = idx[..., 0]
+    q = torch.gather(target.xyz, -2, j[..., None].expand(*j.shape, 3))
+    return d2[..., 0], j, q
+
+
+def _icp_loop(source: PointCloud, init: Pose, iters: int, damping: float, tol: float,
+              associate) -> RegistrationResult:
+    """GN on the residual r = (R p + t) - q with J = [I | -hat(R p + t)]
+    and per-point weights M: `associate(tp, pose)` returns (q, M
+    (..., N, 3, 3) or None for the identity, w (..., N)). The cost
+    r^T M r is both the error and the fitness of the result."""
+    pose = init
+    for _ in range(iters):
+        tp = se3.apply(pose, source.xyz)
+        q, M, w = associate(tp, pose)
+        r = tp - q
+        J = _left_jacobian(tp, 1.0)
+        MJ = J if M is None else M @ J
+        H = torch.einsum("...nai,...naj,...n->...ij", J, MJ, w)
+        b = -torch.einsum("...nai,...na,...n->...i", MJ, r, w)
+        dx = _gn_update(H + 1e-6 * _eye6(H), b, damping)
+        pose = se3.compose(se3.exp(dx), pose)
+        last_dx = torch.linalg.norm(dx, dim=-1)
+        n_in = torch.sum(w, dim=-1)
+        rr = torch.sum(r * r, dim=-1) if M is None else \
+            torch.einsum("...na,...nab,...nb->...n", r, M, r)
+        cost = torch.sum(rr * w, dim=-1) / torch.clamp(n_in, min=1.0)
+    return RegistrationResult(
+        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=cost,
+        converged=last_dx < tol,
+    )
+
+
+def point_to_point_icp(
+    source: PointCloud,
+    target: PointCloud,
+    init: Pose,
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+) -> RegistrationResult:
+    """Classic point-to-point ICP (the reference's PCL_ICP option):
+    brute-force nearest neighbours (`pointcloud.knn`), residual = the
+    matched offset, GN on se(3). Any leading batch of clouds; meant for
+    loop-verification sizes (<= ~8k points a side)."""
+    max_corr2 = _f32_square(max_corr_dist)
+
+    def associate(tp, pose):
+        d2, _, q = _nearest(tp, target)
+        return q, None, (source.mask & (d2 < max_corr2)).to(torch.float32)
+
+    return _icp_loop(source, init, iters, damping, tol, associate)
+
+
+def _regularized_covs(pc: PointCloud, k: int = 10):
+    """fast_gicp's covariance regularisation: per-point k-neighbourhood
+    covariances with eigenvalues snapped to (1e-3, 1, 1), every local
+    surface a plane of uniform confidence. Returns (covs (..., N, 3, 3),
+    valid (..., N))."""
+    from . import pointcloud
+
+    _, cov, valid = pointcloud.covariances_knn(pc, k)
+    eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
+    _, V = linalg3.eigh3(cov + 1e-9 * eye)
+    snapped = torch.tensor([1e-3, 1.0, 1.0], dtype=cov.dtype, device=cov.device)
+    return (V * snapped) @ V.transpose(-1, -2), valid
+
+
+def gicp(
+    source: PointCloud,
+    target: PointCloud,
+    init: Pose,
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+    corr_k: int = 10,
+) -> RegistrationResult:
+    """Generalized ICP (plane-to-plane; the PCL_GICP / FAST_GICP options):
+    cost d^T (C_b + R C_a R^T + 1e-6 I)^-1 d per nearest-neighbour
+    correspondence, with `_regularized_covs` on both clouds. Any leading
+    batch of clouds."""
+    max_corr2 = _f32_square(max_corr_dist)
+    Ca, va = _regularized_covs(source, corr_k)
+    Cb, vb = _regularized_covs(target, corr_k)
+    eye3 = torch.eye(3, dtype=Ca.dtype, device=Ca.device)
+
+    def associate(tp, pose):
+        d2, j, q = _nearest(tp, target)
+        Cbj = torch.gather(Cb, -3, j[..., None, None].expand(*j.shape, 3, 3))
+        vbj = torch.gather(vb, -1, j)
+        Rb = pose.R[..., None, :, :]
+        # the reference's jnp.linalg.inv: an LU inverse of each 3x3;
+        # inv_ex skips the status check, a host sync on the card
+        M = torch.linalg.inv_ex(Cbj + Rb @ Ca @ Rb.transpose(-1, -2) + 1e-6 * eye3).inverse
+        return q, M, (source.mask & va & vbj & (d2 < max_corr2)).to(torch.float32)
+
+    return _icp_loop(source, init, iters, damping, tol, associate)
+
+
 def fitness(
     source: PointCloud,
     target: voxel_grid.VoxelGrid,
@@ -365,3 +538,48 @@ def fitness(
     )
     frac = n_matched / torch.clamp(torch.sum(w, dim=-1), min=1.0)
     return torch.where(frac >= min_match, mean_matched, torch.full_like(mean_matched, mr2))
+
+
+def register_pair(
+    source: PointCloud,
+    target: PointCloud,
+    init: Pose,
+    leaf: float = 0.5,
+    table_size: int = 1 << 15,
+    method: str = "vgicp",
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+) -> RegistrationResult:
+    """Registration selector for one (source, target) pair, the
+    reference's `select_registration_method` + `ICPCheck` per candidate:
+
+      "icp"            -> point-to-point (PCL_ICP)
+      "gicp"           -> plane-to-plane GICP (PCL_GICP / FAST_GICP)
+      "vgicp"          -> voxelized GICP (FAST_VGICP_CUDA, the
+                          production default; the Hopper kernel at B = 1)
+      "point_to_plane" -> plane residual against the voxel map
+
+    Single clouds (N, 3), a single init. Fitness is scored against a
+    permissive min_points=1 grid on every 4th source point (as
+    `loopstage.verify_chunk` scores it)."""
+    if method == "icp":
+        result = point_to_point_icp(source, target, init, iters=iters,
+                                    max_corr_dist=max_corr_dist)
+    elif method == "gicp":
+        result = gicp(source, target, init, iters=iters, max_corr_dist=max_corr_dist)
+    elif method == "vgicp":
+        grid = voxel_grid.build(target, leaf, table_size, min_points=3, regularize="plane")
+        res = vgicp(PointCloud(source.xyz[None], source.mask[None]),
+                    voxel_grid.VoxelGrid(grid.packed[None], grid.leaf),
+                    Pose(init.R[None], init.t[None]), iters=iters,
+                    max_corr_dist=max_corr_dist)
+        result = RegistrationResult(se3.index(res.pose, 0), *(x[0] for x in res[1:]))
+    elif method == "point_to_plane":
+        grid = voxel_grid.build(target, leaf, table_size, min_points=3, regularize="plane")
+        result = point_to_plane_icp(source, grid, init, iters=iters,
+                                    max_corr_dist=max_corr_dist)
+    else:
+        raise ValueError(f"unknown registration method {method!r}")
+    fit_grid = voxel_grid.build(target, leaf, table_size, min_points=1)
+    sub = PointCloud(source.xyz[::4], source.mask[::4])
+    return result._replace(fitness=fitness(sub, fit_grid, result.pose))

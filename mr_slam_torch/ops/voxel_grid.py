@@ -49,6 +49,11 @@ _SYM_I = (0, 1, 2, 0, 0, 1)
 _SYM_J = (0, 1, 2, 1, 2, 2)
 
 
+def _sym6_from_cov(cov: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6) in the packed row's xx yy zz xy xz yz order."""
+    return torch.stack([cov[..., i, j] for i, j in zip(_SYM_I, _SYM_J)], dim=-1)
+
+
 def _cov_from_sym6(s: torch.Tensor) -> torch.Tensor:
     """(..., 6) -> (..., 3, 3)."""
     xx, yy, zz, xy, xz, yz = (s[..., k] for k in range(6))
@@ -96,7 +101,7 @@ class VoxelGrid(NamedTuple):
 def _pack(coords, count, mean, cov, valid) -> torch.Tensor:
     # one view per entry: indexing with the index tuples would copy them
     # to the device from pageable memory, a host sync per call
-    sym6 = torch.stack([cov[..., i, j] for i, j in zip(_SYM_I, _SYM_J)], dim=-1)
+    sym6 = _sym6_from_cov(cov)
     pad = torch.zeros_like(count)
     return torch.cat(
         [
@@ -257,6 +262,13 @@ def lookup_slots(grid: VoxelGrid, xyz: torch.Tensor):
         rows[..., _C0:_C0 + 3] == ijk.to(torch.float32), dim=-1
     )
     return slot.to(torch.int32), found
+
+
+def nearest_cell(grid: VoxelGrid, xyz: torch.Tensor):
+    """Single-cell lookup: (found (..., M), mean (..., M, 3), cov
+    (..., M, 3, 3), count (..., M)) of the cell containing each point."""
+    found, count, mean, cov = lookup(grid, xyz, "direct1")
+    return found[..., 0], mean[..., 0, :], cov[..., 0, :, :], count[..., 0]
 
 
 def insert(grid: VoxelGrid, pc: PointCloud, min_points: int = 1) -> VoxelGrid:

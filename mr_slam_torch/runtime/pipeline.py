@@ -270,6 +270,57 @@ def _descriptor_distances(desc_q: dict, qi, desc_db: dict, cfg: SlamConfig):
 
 
 # --------------------------------------------------------------------------
+# single-candidate verification and odometry-space candidates
+# --------------------------------------------------------------------------
+
+
+def _verify_loop(
+    store_a: kf.KeyframeStore,
+    ia: int,
+    store_b: kf.KeyframeStore,
+    ib: int,
+    yaw_guess: float,
+    cfg: SlamConfig,
+    same_robot: bool = False,
+    descs_a: dict | None = None,
+    descs_b: dict | None = None,
+):
+    """Geometry check (`ICPCheck`) of one candidate loop: a batch of one
+    through `loopstage.verify_chunk`, so the chunked production path is
+    the one source of truth. Returns (accept, rel_pose (b_kf_frame <-
+    a_kf_frame), fitness)."""
+    from . import loopstage
+
+    dev = store_a.xyz.device
+    rel, fit = loopstage.verify_chunk(
+        store_a, store_b,
+        torch.tensor([ia], device=dev), torch.tensor([ib], device=dev),
+        torch.tensor([yaw_guess], dtype=torch.float32, device=dev), cfg, same_robot,
+        descs_a=descs_a, descs_b=descs_b,
+    )
+    f = float(fit[0])
+    return f < cfg.loops.fitness_thresh, se3.index(rel, 0), f
+
+
+def odom_space_candidates(store: kf.KeyframeStore, qi: int, cfg: SlamConfig) -> list[int]:
+    """Same-robot loop candidates by RADIUS SEARCH over the key-pose
+    cloud (`detectLoopClosure`'s radius search): past keyframe indices
+    within `cfg.loops.odom_radius` metres of keyframe `qi`, outside the
+    temporal window, nearest first, at most `cfg.loops.candidates`."""
+    L = cfg.loops
+    if L.odom_radius <= 0.0:
+        return []
+    K = int(store.count)
+    if K == 0:
+        return []
+    t = store.poses.t[:K].cpu().numpy()
+    d = np.linalg.norm(t - t[qi], axis=-1)
+    ok = (d < L.odom_radius) & (np.abs(np.arange(K) - qi) > L.min_separation)
+    idx = np.flatnonzero(ok)
+    return [int(i) for i in idx[np.argsort(d[idx])][: L.candidates]]
+
+
+# --------------------------------------------------------------------------
 # PCM gating
 # --------------------------------------------------------------------------
 

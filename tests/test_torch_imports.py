@@ -25,9 +25,11 @@ def test_port_imports_without_jax():
             mr_slam_torch.__path__, "mr_slam_torch.")]
         for name in names:
             importlib.import_module(name)
-        bad = [m for m in sys.modules if m.startswith(("mr_slam_tpu", "jax", "flax"))
+        bad = [m for m in sys.modules if m.startswith(("mr_slam_tpu", "jax", "flax", "optax"))
                and sys.modules[m] is not None]
         assert not bad, bad
+        # plots import matplotlib when they draw (the card has none)
+        assert "matplotlib" not in sys.modules
         print(len(names), *names)
         """
     )
@@ -40,6 +42,7 @@ def test_port_imports_without_jax():
     assert set(STREAMING_MODULES) <= set(walked[1:])
     assert set(PLACE_RECOGNITION_MODULES) <= set(walked[1:])
     assert set(FRONTEND_MODULES) <= set(walked[1:])
+    assert set(CLOSURE_MODULES) <= set(walked[1:])
 
 
 # the streaming slice: session, store, TF, checkpoint, artifacts, replay
@@ -65,6 +68,22 @@ FRONTEND_MODULES = [
     "mr_slam_torch.frontend.preprocess", "mr_slam_torch.frontend.lio",
     "mr_slam_torch.frontend.feature_odometry", "mr_slam_torch.ops.features",
 ]
+
+
+# the closing slice: the eval tools and the port's example
+CLOSURE_MODULES = [
+    "mr_slam_torch.eval.graphgen", "mr_slam_torch.eval.reference_solver",
+    "mr_slam_torch.eval.visualize", "mr_slam_torch.examples.demo_synthetic",
+]
+
+
+def test_reference_solver_shares_no_code_with_chordal():
+    """The trusted solver's independence is its point: it imports
+    nothing of `backend/chordal`."""
+    text = (ROOT / "mr_slam_torch" / "eval" / "reference_solver.py").read_text()
+    assert "chordal" not in _imported_modules(ROOT / "mr_slam_torch" / "eval" /
+                                              "reference_solver.py")
+    assert "import chordal" not in text and "chordal import" not in text
 
 
 def _imported_modules(path: Path) -> set[str]:

@@ -96,13 +96,15 @@ def test_gn_terms_from_rows_matches_reference(vgicp_batch, centered):
 
 
 def test_vgicp_rejects_unported_paths(vgicp_batch):
+    """A `schedule` applies to the fused direct1 path only: with other
+    neighbours or source covariances it raises (the reference silently
+    ignores it there). The general path itself runs
+    (`test_torch_registration_general.py` holds it to the reference)."""
     src, grid, init = vgicp_batch
-    with pytest.raises(NotImplementedError):
-        treg.vgicp(src, grid, init, neighbors="direct7")
     with pytest.raises(NotImplementedError):
         treg.vgicp(src, grid, init, neighbors="direct7", schedule=((5, 1),))
     with pytest.raises(NotImplementedError):
-        treg.vgicp(src, grid, init, source_covs=torch.zeros(B, 4096, 3, 3))
+        treg.vgicp(src, grid, init, source_covs=torch.zeros(B, 4096, 3, 3), schedule=((5, 1),))
 
 
 @pytest.mark.parametrize("neighbors,inner,schedule", [

@@ -138,6 +138,66 @@ def rot_diff_deg(Ra, Rb) -> float:
     return float(np.degrees(np.arcsin(min(np.linalg.norm(w), 1.0))))
 
 
+def flax_to_state_dict(tree) -> dict:
+    """A flax DiscoNet parameter or gradient tree as the port's
+    `state_dict` names and layouts (`disco_net.state_dict_from_flax`),
+    so each leaf compares with the port parameter's `.grad`."""
+    import jax
+
+    from mr_slam_torch.loop import disco_net
+
+    return disco_net.state_dict_from_flax(jax.tree.map(np.asarray, tree))
+
+
+def graph_to_numpy(g) -> dict:
+    """The valid content of a factor graph of either package as numpy
+    arrays (node and edge counts as ints)."""
+    n, e = int(g.n_nodes), int(g.n_edges)
+    host = (lambda x: x.detach().cpu().numpy()) if isinstance(g.poses.t, torch.Tensor) \
+        else np.asarray
+    return dict(
+        capacity=(g.node_capacity, g.edge_capacity), n_nodes=n, n_edges=e,
+        R=host(g.poses.R)[:n], t=host(g.poses.t)[:n], robot=host(g.node_robot)[:n],
+        edge_i=host(g.edge_i)[:e], edge_j=host(g.edge_j)[:e], meas_R=host(g.edge_meas.R)[:e],
+        meas_t=host(g.edge_meas.t)[:e], kind=host(g.edge_kind)[:e],
+        w_rot=host(g.edge_w_rot)[:e], w_trans=host(g.edge_w_trans)[:e],
+    )
+
+
+def graph_to_torch(g, device="cpu"):
+    """A reference `FactorGraph` as the port's, through numpy."""
+    from mr_slam_torch.backend import factor_graph as tfg
+
+    a = graph_to_numpy(g)
+    tg = tfg.init(*a["capacity"], device)
+    tg, _ = tfg.add_nodes_batch(tg, tse3.Pose(to_torch(a["R"]).to(device), to_torch(a["t"]).to(device)),
+                                to_torch(a["robot"]).to(device))
+    tg, _ = tfg.add_edges_batch(
+        tg, to_torch(a["edge_i"]).to(device), to_torch(a["edge_j"]).to(device),
+        tse3.Pose(to_torch(a["meas_R"]).to(device), to_torch(a["meas_t"]).to(device)),
+        to_torch(a["kind"]).to(device), to_torch(a["w_rot"]).to(device),
+        to_torch(a["w_trans"]).to(device))
+    return tg
+
+
+def graph_to_jax(g):
+    """A port `FactorGraph` as the reference's, through numpy."""
+    import jax.numpy as jnp
+
+    from mr_slam_tpu.backend import factor_graph as jfg
+    from mr_slam_tpu.geometry import se3 as jse3
+
+    a = graph_to_numpy(g)
+    jg = jfg.init(*a["capacity"])
+    jg, _ = jfg.add_nodes_batch(jg, jse3.Pose(jnp.asarray(a["R"]), jnp.asarray(a["t"])),
+                                jnp.asarray(a["robot"], jnp.int32))
+    jg, _ = jfg.add_edges_batch(
+        jg, jnp.asarray(a["edge_i"], jnp.int32), jnp.asarray(a["edge_j"], jnp.int32),
+        jse3.Pose(jnp.asarray(a["meas_R"]), jnp.asarray(a["meas_t"])),
+        jnp.asarray(a["kind"], jnp.int32), jnp.asarray(a["w_rot"]), jnp.asarray(a["w_trans"]))
+    return jg
+
+
 def grid_to_jax(g):
     from mr_slam_tpu.ops import voxel_grid as jvg
 
