@@ -154,8 +154,40 @@ Phases (each prints its own lines; any failure exits non-zero):
                budget (PGO_FULL) against `reference_solver.solve` on the
                host: ATE <= 1.1 x the solver's (JAX_REF_PGO is the JAX
                package's own ratio on its own graph).
+ 11. dist    — the multi-process runtime on the card: phase 5's scans,
+               origins and config written under `mr_slam_torch/build/dist/`,
+               DIST_PROCS `mr_slam_torch.examples.multihost_worker`
+               processes (one robot each, all on cuda:0, gloo: NCCL
+               refuses two ranks on one card), each running
+               `multihost.run_multihost` twice, then
+               `sharded_elevation.features_sharded` over the ranks on
+               phase 6's 600^2 map and a DIST_GRID grid drawn as
+               `stencil_inputs` draws. Checks: every rank's replicated
+               front-end products equal phase 5's bit for bit; the
+               accepted loops equal phase 5's (`rel` bit for bit); the
+               ranks' optimized poses bitwise equal, and the second run's
+               equal the first's; the keyframe poses within DIST_TOL of
+               phase 5's single-process solve; each robot's keyframe ATE
+               within phase 5's gate; the sharded features equal the
+               stencil kernel on the whole grid bit for bit on rows
+               [2:-2], and on every row the kernel on the grid with two
+               empty zero-height rows added at each end (the reference's
+               sharded border) and, within STENCIL_ATOL, the plain
+               version there; the kernel against its plain version
+               (`check_stencil`) on the DIST_GRID grid, both zero-padded
+               grids and rank 0's block of each (rows with their halo).
+               Then `gauss_seidel.optimize` on phase 5's
+               graph on the card: keyframe ATE within the reference
+               test's band of chordal's (< max(2 x, 0.05 m)). Prints the
+               backend and why, per rank the front-end frames/s, every
+               `multihost.*` / `backend.*` span, each collective's calls,
+               bytes and host ms, the kernels' launches; then
+               `bench_multiprocess`'s front-end efficiency, 1 against
+               DIST_PROCS processes sharing the card, its cores roof
+               (DIST_PROCS independent processes) and its split (not a
+               gate).
 
-Every kernel check of phases 3, 4, 6 and 8 prints, for its shape, the
+Every kernel check of phases 3, 4, 6, 8 and 11 prints, for its shape, the
 device time (`graph_ms`: calls captured in a CUDA graph, replays timed
 with CUDA events), the eager call time (`_cuda_ms`), the plain
 version's time, and the bound (`bound`: bytes over the HBM rate or f32
@@ -166,7 +198,8 @@ Each phase prints its seconds (`[time]`). The last three lines are the
 kernels' JSON record (the launch counts of
 the main path's runs of phases 5 and 6, the online session's of phase 7,
 phase 8's RING run, offset verify and DiSCO session, phase 9's LIO
-run and LIO session, and phase 10's registrations; the times and
+run and LIO session, phase 10's registrations, and phase 11's first
+multi-process run and sharded features, summed over the ranks; the times and
 bound of
 each kernel at the main path's shape: VGICP's fine/slot/center/pose
 call at B = 8, the stencil at the 600^2 map grid; the largest error of
@@ -182,6 +215,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -624,19 +658,19 @@ def phase_kernel(dev):
     return record
 
 
-def stencil_inputs(kind: str, size: int, res: float = 0.2):
-    """(height, valid) numpy: the reference bench's random field
-    (`bench.py:223`: N(0, 1) heights, 80 % valid) or smooth rolling
-    terrain with 1 cm noise and 80 % valid cells."""
+def stencil_inputs(kind: str, size, res: float = 0.2):
+    """(height, valid) numpy of an n x n grid (`size` n) or an (H, W)
+    one: the reference bench's random field (`bench.py:223`: N(0, 1)
+    heights, 80 % valid) or smooth rolling terrain with 1 cm noise and
+    80 % valid cells."""
+    H, W = (size, size) if isinstance(size, int) else size
     rng = np.random.default_rng({"random": 0, "terrain": 1}[kind])
     if kind == "random":
-        return (rng.normal(0, 1, (size, size)).astype(np.float32),
-                rng.random((size, size)) > 0.2)
-    ii = np.arange(size, dtype=np.float32)[:, None] * res
-    jj = np.arange(size, dtype=np.float32)[None, :] * res
-    h = 0.3 * np.sin(ii / 3.0) + 0.25 * np.cos(jj / 4.0) \
-        + 0.01 * rng.standard_normal((size, size))
-    return h.astype(np.float32), rng.random((size, size)) < 0.8
+        return rng.normal(0, 1, (H, W)).astype(np.float32), rng.random((H, W)) > 0.2
+    ii = np.arange(H, dtype=np.float32)[:, None] * res
+    jj = np.arange(W, dtype=np.float32)[None, :] * res
+    h = 0.3 * np.sin(ii / 3.0) + 0.25 * np.cos(jj / 4.0) + 0.01 * rng.standard_normal((H, W))
+    return h.astype(np.float32), rng.random((H, W)) < 0.8
 
 
 def features64(height, valid, res: float):
@@ -846,7 +880,8 @@ def phase_main(dev):
             raise AssertionError(f"robot {r} keyframe ATE {a:.3f} m >= 1.0 m")
         if JAX_REF_ATE is not None and not a <= 1.25 * JAX_REF_ATE[r] + 0.05:
             raise AssertionError(f"robot {r} ATE {a:.3f} m beyond 1.25 x JAX {JAX_REF_ATE[r]} + 0.05")
-    return launches, res, scans, cfg, trajs, host_scans
+    frontend_s = [spans[f"robot{r}.frontend"]["total_s"] for r in range(N_ROBOTS)]
+    return launches, res, scans, cfg, trajs, host_scans, frontend_s
 
 
 def _synced(fn, timers, name):
@@ -964,7 +999,7 @@ def phase_map(res, scans, cfg, dev):
     if not same:
         raise AssertionError("two build_elevation calls differ")
     gem_ticks(res, scans, cfg, dev)
-    return launches, t
+    return launches, t, emap
 
 
 # --------------------------------------------------------------------------
@@ -2541,6 +2576,228 @@ def phase_closure(dev, res, trajs, cfg):
     return launches, dict(register=reg, disco=dn, pgo=pgo)
 
 
+# --------------------------------------------------------------------------
+# phase 11: the multi-process runtime, DIST_PROCS processes on one card
+# --------------------------------------------------------------------------
+
+DIST_PROCS = N_ROBOTS        # one robot a process
+DIST_GRID = (3072, 2048)     # the second grid of the sharded features
+DIST_TIMEOUT_S = 400         # each worker's time limit
+DIST_BENCH_FRAMES = 64       # frames a robot of the bench_multiprocess measurement
+DIST_BENCH_REPS = 1          # its timed runs after the warm-up
+# the edge-sharded solve against phase 5's single-process one (m, and on
+# rotation entries): the all-reduce sums the ranks' partials in another
+# order than one process's scatter
+DIST_TOL = 1e-3
+
+
+def dist_inputs(path, host_scans, trajs, cfg, emap):
+    """Write what the workers read (`multihost_worker`'s MRSLAM_INPUT):
+    phase 5's scans, origins and config, and the two grids."""
+    h, v = stencil_inputs("random", DIST_GRID)
+    np.savez(
+        path,
+        xyz=np.stack([s.xyz.numpy() for s in host_scans]),
+        mask=np.stack([s.mask.numpy() for s in host_scans]),
+        origin_R=np.stack([t.R[0].numpy() for t in trajs]),
+        origin_t=np.stack([t.t[0].numpy() for t in trajs]),
+        cfg=np.array(cfg.to_json()),
+        grids=np.array(["map", "grid"]),
+        map_height=emap.height.cpu().numpy(), map_valid=emap.valid.cpu().numpy(),
+        map_res=np.float32(emap.resolution.item()),
+        grid_height=h, grid_valid=v, grid_res=np.float32(0.2),
+    )
+    return h, v
+
+
+def check_sharded(name, feats, height, valid, res):
+    """The stencil kernel against its plain version (`check_stencil`) at
+    every shape the sharded path gives it or is compared at: the whole
+    grid, the grid with two empty zero-height rows at each end, and rank
+    0's block with its halo rows. Then rank 0's sharded features against
+    the unsharded kernel on the whole grid (rows [2:-2] bit for bit), the
+    kernel on the zero-padded grid (every row bit for bit) and the plain
+    version on the zero-padded grid (step exact, the other layers within
+    STENCIL_ATOL). Returns the largest kernel-vs-plain error."""
+    import torch
+
+    H = height.shape[0]
+    pad = torch.zeros_like(height[:2])
+    padded_h, padded_v = torch.cat([pad, height, pad]), torch.cat([pad > 0, valid, pad > 0])
+    rows = H // DIST_PROCS + 4
+    t_whole, whole, _ = check_stencil(f"dist {name} {tuple(height.shape)}", height, valid, res)
+    t_pad, padded, plain = check_stencil(f"dist {name} zero-padded {tuple(padded_h.shape)}",
+                                         padded_h, padded_v, res)
+    t_block, _, _ = check_stencil(f"dist {name} rank-0 block {(rows, height.shape[1])}",
+                                  padded_h[:rows], padded_v[:rows], res)
+    layers = ("slope", "roughness", "step", "traversability")
+    inner = all(np.array_equal(feats[f"{name}_{n}"][2:-2], w[2:-2].cpu().numpy())
+                for n, w in zip(layers, whole))
+    border = all(np.array_equal(feats[f"{name}_{n}"], w[2:-2].cpu().numpy())
+                 for n, w in zip(layers, padded))
+    gaps = {n: float(np.abs(feats[f"{name}_{n}"] - w[2:-2].cpu().numpy()).max())
+            for n, w in zip(layers, plain)}
+    near_plain = gaps["step"] == 0.0 and max(gaps.values()) <= STENCIL_ATOL
+    differ = sum(int((feats[f"{name}_{n}"] != w.cpu().numpy()).sum()) for n, w in zip(layers, whole))
+    log(f"[dist] features_sharded {name} {tuple(height.shape)}: rows [2:-2] equal the unsharded "
+        f"kernel: {inner}; every row equals the kernel on the zero-padded grid: {border}; cells "
+        f"that differ from the unsharded kernel (border rows): {differ}; against the plain "
+        f"version on the zero-padded grid: max abs err "
+        + " ".join(f"{n} {e:.3g}" for n, e in gaps.items()) + f" (step exact, others within "
+        f"{STENCIL_ATOL}: {near_plain})")
+    if not (inner and border and near_plain):
+        raise AssertionError(f"sharded features of {name} differ from the stencil kernel "
+                             f"or its plain version")
+    return max(t["max_abs_err"] for t in (t_whole, t_pad, t_block))
+
+
+def phase_dist(dev, res, trajs, host_scans, cfg, emap, vgicp_main, frontend_s, smi):
+    """Phase 11 (see the module docstring). Returns (VGICP launches,
+    stencil launches) of its first run, summed over the ranks, and the
+    stencil kernel's largest error against its plain version at this
+    phase's shapes."""
+    import torch
+
+    from mr_slam_torch.backend import gauss_seidel
+    from mr_slam_torch.eval import metrics
+    from mr_slam_torch.examples import multihost_worker as worker
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.parallel import multihost
+
+    out = Path(__file__).resolve().parent / "mr_slam_torch" / "build" / "dist"
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("rank*.npz"):
+        old.unlink()
+    h, v = dist_inputs(out / "input.npz", host_scans, trajs, cfg, emap)
+    torch.cuda.empty_cache()
+    backend, why = multihost.choose_backend(dev, DIST_PROCS)
+    log(f"[dist] {DIST_PROCS} processes on {torch.cuda.device_count()} card ({smi}); backend "
+        f"{backend}: {why}")
+    t0 = time.perf_counter()
+    worker.launch(DIST_PROCS, dict(MRSLAM_DEVICE=dev.type, MRSLAM_INPUT=str(out / "input.npz"),
+                                   MRSLAM_OUT=str(out), MRSLAM_REPEAT="2"),
+                  timeout_s=DIST_TIMEOUT_S)
+    log(f"[dist] workers done in {time.perf_counter() - t0:.1f} s (start-up included)")
+    ranks = [dict(np.load(out / f"rank{p}.npz")) for p in range(DIST_PROCS)]
+    stats = [json.loads(str(r["stats"])) for r in ranks]
+
+    # per rank: front-end rate, spans, collectives, launches
+    for st in stats:
+        for k, run in enumerate(st["runs"]):
+            sp, c = run["spans"], run["counters"]
+            fe = sp["multihost.frontend"]
+            log(f"[dist] rank {st['rank']} run {k}: robots {st['robots']}, wall {run['wall_s']:.3f} "
+                f"s, front-end {len(st['robots']) * N_FRAMES / fe:.2f} frames/s; vgicp_accum "
+                f"launches {run['vgicp_launches']}; spans "
+                + ", ".join(f"{n} {t:.3f}" for n, t in sp.items()
+                            if n.startswith(("multihost.", "backend.")) and n.count(".") == 1)
+                + " s; " + "; ".join(
+                    f"{op} {c.get(f'comm.{op}.calls', 0):.0f} calls {c.get(f'comm.{op}.bytes', 0) / 1e6:.3f}"
+                    f" MB {1e3 * c.get(f'comm.{op}.s', 0):.1f} ms" for op in ("all_reduce", "all_gather")))
+        for name in ("map", "grid"):
+            g = st[f"grid_{name}"]
+            c = g["counters"]
+            log(f"[dist] rank {st['rank']} features_sharded {name}: {1e3 * g['s']:.2f} ms, "
+                f"terrain_stencil launches {g['stencil_launches']}, all_gather "
+                f"{c.get('comm.all_gather.calls', 0):.0f} calls "
+                f"{c.get('comm.all_gather.bytes', 0) / 1e6:.3f} MB "
+                f"{1e3 * c.get('comm.all_gather.s', 0):.1f} ms")
+    vgicp = sum(st["runs"][0]["vgicp_launches"] for st in stats)
+    stencil = sum(st[f"grid_{n}"]["stencil_launches"] for st in stats for n in ("map", "grid"))
+    log(f"[dist] vgicp_accum launches over the ranks {vgicp} (phase 5's one process: "
+        f"{vgicp_main}); terrain_stencil launches {stencil} (one a rank a grid)")
+    fe_mh = max(st["runs"][0]["spans"]["multihost.frontend"] for st in stats)
+    eff = (N_ROBOTS * N_FRAMES / fe_mh) / (N_ROBOTS * N_FRAMES / sum(frontend_s))
+    log(f"[dist] front-end frames/s, {DIST_PROCS} processes sharing one card against phase 5's "
+        f"one process running the robots in turn: {N_ROBOTS * N_FRAMES / fe_mh:.2f} vs "
+        f"{N_ROBOTS * N_FRAMES / sum(frontend_s):.2f} (speedup {eff:.3f}; not a gate)")
+
+    # gates
+    want = [worker.robot_digests(rr) for rr in res.robots]
+    fe_same = all(run["digests"] == want for st in stats for run in st["runs"])
+    loops_same = all(np.array_equal(r[f"loops_{k}"], worker.loop_rows(res.loops))
+                     for r in ranks for k in range(2))
+    ranks_same = all(np.array_equal(r[f"opt_{x}_0"], ranks[0][f"opt_{x}_0"])
+                     for r in ranks for x in "Rt")
+    rerun_same = all(np.array_equal(r[f"opt_{x}_1"], r[f"opt_{x}_0"]) for r in ranks for x in "Rt")
+    valid = res.graph.node_valid.cpu().numpy()
+    gap_t = float(np.abs(ranks[0]["opt_t_0"] - res.opt_poses.t.cpu().numpy())[valid].max())
+    gap_R = float(np.abs(ranks[0]["opt_R_0"] - res.opt_poses.R.cpu().numpy())[valid].max())
+    inter = sum(1 for l in res.loops if l["robot_a"] != l["robot_b"])
+    log(f"[dist] front-end products of every rank equal phase 5's: {fe_same}; accepted loops "
+        f"({len(res.loops)}, {inter} inter-robot) equal phase 5's: {loops_same}; ranks' poses "
+        f"bitwise equal: {ranks_same}; second run bit-identical: {rerun_same}; edge-sharded "
+        f"solve against phase 5's: max |dt| {gap_t:.3e} m, max |dR| {gap_R:.3e}")
+    opt = se3.Pose(torch.from_numpy(ranks[0]["opt_R_0"]), torch.from_numpy(ranks[0]["opt_t_0"]))
+    ates = []
+    for r in range(N_ROBOTS):
+        ids = res.node_of[r][res.node_of[r] >= 0]
+        est = se3.Pose(opt.R[ids], opt.t[ids])
+        true_kf = se3.index(trajs[r], torch.as_tensor(res.robots[r].kf_frame_idx))
+        ates.append(float(metrics.ate(est, true_kf).rmse))
+    log(f"[dist] keyframe ATE per robot (m): {[round(a, 4) for a in ates]}; JAX reference "
+        f"{JAX_REF_ATE}")
+    if not (fe_same and loops_same and ranks_same and rerun_same):
+        raise AssertionError("the multi-process run differs from phase 5's or between runs/ranks")
+    if not (gap_t <= DIST_TOL and gap_R <= DIST_TOL):
+        raise AssertionError(f"edge-sharded poses part from phase 5's by {gap_t} m / {gap_R}")
+    for r, a in enumerate(ates):
+        if not (a < 1.0 and a <= 1.25 * JAX_REF_ATE[r] + 0.05):
+            raise AssertionError(f"robot {r} multi-process ATE {a:.3f} m beyond phase 5's gate")
+    if not (vgicp > 0 and stencil == 2 * DIST_PROCS):
+        raise AssertionError(f"kernels not launched as expected: vgicp {vgicp}, stencil {stencil}")
+    feats = ranks[0]
+    stencil_err = max(
+        check_sharded("map", feats, emap.height, emap.valid, emap.resolution),
+        check_sharded("grid", feats, torch.from_numpy(h).to(dev), torch.from_numpy(v).to(dev),
+                      torch.tensor(0.2, device=dev)))
+
+    # decentralized Gauss-Seidel on phase 5's graph, against chordal
+    g = res.graph
+    anchors = torch.zeros(g.node_capacity, dtype=torch.bool, device=dev)
+    anchors[torch.as_tensor([int(res.node_of[r, 0]) for r in range(N_ROBOTS)], device=dev)] = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gs = gauss_seidel.optimize(g, anchors, N_ROBOTS, gauss_seidel.GSConfig())
+    torch.cuda.synchronize()
+    gs_s = time.perf_counter() - t0
+
+    def pooled_ate(t):
+        errs = []
+        for r in range(N_ROBOTS):
+            ids = res.node_of[r][res.node_of[r] >= 0]
+            true_t = trajs[r].t.numpy()[res.robots[r].kf_frame_idx]
+            errs.append(np.sum((t[ids] - true_t) ** 2, axis=-1))
+        return float(np.sqrt(np.mean(np.concatenate(errs))))
+
+    err_gs, err_cen = pooled_ate(gs.t.cpu().numpy()), pooled_ate(res.opt_poses.t.cpu().numpy())
+    log(f"[dist] gauss_seidel.optimize on phase 5's graph ({g.n_nodes} nodes, {g.n_edges} edges, "
+        f"GSConfig() defaults): {gs_s:.3f} s, keyframe ATE {err_gs:.4f} m against chordal's "
+        f"{err_cen:.4f} m (band: < max(2 x, 0.05 m))")
+    if not err_gs < max(2.0 * err_cen, 0.05):
+        raise AssertionError(f"Gauss-Seidel ATE {err_gs:.4f} outside the band of {err_cen:.4f}")
+
+    # bench_multiprocess's measurement on its own scenario (16 x 256 rays)
+    t0 = time.perf_counter()
+    kw = dict(reps=DIST_BENCH_REPS, timeout_s=DIST_TIMEOUT_S)
+    one = worker.bench(1, 1, DIST_BENCH_FRAMES, dev.type, log_dir=out / "bench1", **kw)
+    many = worker.bench(DIST_PROCS, DIST_PROCS, DIST_BENCH_FRAMES, dev.type,
+                        log_dir=out / f"bench{DIST_PROCS}", **kw)
+    roof = worker.bench_roof(DIST_PROCS, DIST_BENCH_FRAMES, dev.type, log_dir=out / "roof", **kw)
+    split = many["split_ms"]
+    log(f"[dist] bench_multiprocess ({worker.card_note(DIST_PROCS, dev.type)}; "
+        f"{DIST_BENCH_FRAMES} frames a robot at 16x256 rays, {DIST_BENCH_REPS} timed run(s) "
+        f"after a warm-up, not a gate): front-end {one['bench_fps']:.2f} frames/s with 1 "
+        f"process, {many['bench_fps']:.2f} with {DIST_PROCS} in one group, {roof:.2f} with "
+        f"{DIST_PROCS} independent processes (the cores roof); efficiency "
+        f"{many['bench_fps'] / (DIST_PROCS * one['bench_fps']):.3f}, against the roof "
+        f"{many['bench_fps'] / roof:.3f}, roof against {DIST_PROCS} x one process "
+        f"{roof / (DIST_PROCS * one['bench_fps']):.3f}; process 0's split of the {DIST_PROCS}-"
+        f"process run: front-ends {split['frontend']:.1f} ms, feed {split['feed']:.2f} ms, "
+        f"replicate {split['replicate']:.2f} ms ({time.perf_counter() - t0:.1f} s)")
+    return vgicp, stencil, stencil_err
+
+
 def main() -> int:
     import torch
 
@@ -2558,23 +2815,25 @@ def main() -> int:
     timed("build", phase_build)
     vgicp = timed("kernel", phase_kernel, dev)
     stencil_err = timed("stencil", phase_stencil, dev)
-    vgicp_launches, res, scans, cfg, trajs, host_scans = timed("main", phase_main, dev)
-    stencil_launches, stencil = timed("map", phase_map, res, scans, cfg, dev)
+    vgicp_launches, res, scans, cfg, trajs, host_scans, frontend_s = timed("main", phase_main, dev)
+    stencil_launches, stencil, emap = timed("map", phase_map, res, scans, cfg, dev)
     del scans
     online_vgicp, online_stencil, online_err = timed("online", phase_online, dev, trajs,
                                                      host_scans, cfg)
     desc_vgicp, record16, _ = timed("desc", phase_descriptors, dev, res, trajs, host_scans, cfg)
     lio_vgicp, _ = timed("lio", phase_lio, dev, cfg)
     closure_vgicp, _ = timed("closure", phase_closure, dev, res, trajs, cfg)
-    log(f"[closure] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
+    dist_vgicp, dist_stencil, dist_err = timed("dist", phase_dist, dev, res, trajs, host_scans, cfg, emap,
+                                     vgicp_launches, frontend_s, smi)
+    log(f"[dist] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
         f"{online_vgicp} (phase 7) + {desc_vgicp} (phase 8) + {lio_vgicp} (phase 9) + "
-        f"{closure_vgicp} (phase 10), terrain_stencil {stencil_launches} (phase 6) + "
-        f"{online_stencil} (phase 7)")
+        f"{closure_vgicp} (phase 10) + {dist_vgicp} (phase 11), terrain_stencil "
+        f"{stencil_launches} (phase 6) + {online_stencil} (phase 7) + {dist_stencil} (phase 11)")
     log(f"[time] all phases: {sum(seconds.values()):.1f} s")
-    vgicp_launches += online_vgicp + desc_vgicp + lio_vgicp + closure_vgicp
+    vgicp_launches += online_vgicp + desc_vgicp + lio_vgicp + closure_vgicp + dist_vgicp
     vgicp["max_abs_err"] = max(vgicp["max_abs_err"], record16["max_abs_err"])
-    stencil_launches += online_stencil
-    stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err, online_err)
+    stencil_launches += online_stencil + dist_stencil
+    stencil["max_abs_err"] = max(stencil["max_abs_err"], stencil_err, online_err, dist_err)
     print(json.dumps({"kernels": [
         dict(name="vgicp_accum", route="cuda", source="mr_slam_torch/csrc/vgicp_accum.cu",
              replaces="mr_slam_tpu/ops/pallas_vgicp.py:77", launches=vgicp_launches, **vgicp),

@@ -17,13 +17,18 @@ Layout (the reference's, slice by slice):
              feature odometry, sensor preprocessing, keyframe gating
   loop/      place descriptors (ScanContext, RING / RING++, DiSCO and
              DiscoNet with its training, M2DP, FastHistogram)
-  backend/   factor graph, PCM gating, chordal PGO
+  backend/   factor graph, PCM gating, chordal PGO, its edge-sharded
+             multi-process form, decentralized Gauss-Seidel
+  mapping/   elevation map, costmap, row-sharded terrain features
+  parallel/  the batched multi-robot store, process meshes, the
+             multi-process runtime (`torch.distributed`)
   runtime/   config, loop stage, end-to-end pipeline, tracing
   eval/      ATE, RPE, recall@N and the recall harness, the pose-graph
              generator, the independent reference solver, plots
   datasets/  synthetic multi-robot worlds (a numpy raycaster per frame,
              a batched one on the device)
-  examples/  the end-to-end demo (`python -m mr_slam_torch.examples.demo_synthetic`)
+  examples/  the end-to-end demo (`python -m mr_slam_torch.examples.demo_synthetic`),
+             the multi-process worker and benches, the g2o runner
 """
 from . import precision as _precision
 

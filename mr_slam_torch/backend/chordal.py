@@ -1,6 +1,6 @@
 """Two-stage chordal pose-graph optimization, matrix-free (port of
 `mr_slam_tpu/backend/chordal.py`: `PGOConfig`, `rotation_init`,
-`optimize`; single device only).
+`optimize`, `_preduce`).
 
 Stage 1 solves the chordal rotation relaxation by CG and projects to
 SO(3); stage 2 runs Gauss-Newton on the BetweenChordalFactor residuals
@@ -12,6 +12,14 @@ a fixed summation order, so reruns on the card are bit-identical. The
 reference's `lax.scan`s are Python loops: with the
 default budget (60 + 12 x 40 CG steps, ~540 in all, each ~20 small
 kernels) a solve is launch-bound on the card.
+
+With `group` (a `torch.distributed` process group) the edge arrays are
+this rank's block of the graph's edges and the node arrays are
+replicated: every edge scatter is summed over the group's ranks
+(`_preduce`, one all-reduce), so each rank solves the whole system and
+every rank gets the same bits. The CG dot products are over replicated
+node vectors and are not reduced, as in the reference. With
+`group=None` nothing is reduced: the single-process solve.
 """
 from __future__ import annotations
 
@@ -39,6 +47,16 @@ def _edge_weights(g: FactorGraph):
     return w * g.edge_w_rot, w * g.edge_w_trans
 
 
+def _preduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum edge-scatter partials over the ranks of `group` (`x` itself
+    when there is none)."""
+    if group is None:
+        return x
+    from ..parallel import mesh
+
+    return mesh.all_reduce(x, group)
+
+
 def scatter_plan(g: FactorGraph) -> segment.ScatterPlan:
     """The node scatter of a solve: per-edge values at edge_i, then at
     edge_j, summed into (node_capacity, ...). Unused edge slots carry
@@ -55,23 +73,19 @@ def rotation_init(
     iters: int = 60,
     anchor_weight: float = 1e3,
     scatter: segment.ScatterPlan | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Solve min sum_e w_e |X_j - X_i Rij|_F^2 (+ anchored rotations) over
     X in R^{N x 3 x 3} by CG on the normal equations, then project to
     SO(3). `anchor_weight` is softer than the pose stage's (a 1e6 anchor
-    row stalls CG from a warm start)."""
+    row stalls CG from a warm start). `group`: see the module docstring."""
     scatter = scatter or scatter_plan(g)
     w_rot, _ = _edge_weights(g)
-    Rij = g.edge_meas.R
-    ei, ej = g.edge_i, g.edge_j
     anchor_R = g.poses.R
     aw = anchors.to(torch.float32) * anchor_weight
-    wr = w_rot[:, None, None]
 
     def A(X):
-        d = X[ej] - X[ei] @ Rij
-        gi = -(d @ Rij.transpose(-1, -2))
-        return scatter(wr * gi, wr * d) + aw[:, None, None] * X
+        return _preduce(_rotation_scatter(g, w_rot, X, scatter), group) + aw[:, None, None] * X
 
     b = aw[:, None, None] * anchor_R
     X = anchor_R  # warm start from the current estimate
@@ -88,6 +102,17 @@ def rotation_init(
         p = r + beta * p
         rs = rs_new
     return so3.project(X)
+
+
+def _rotation_scatter(g: FactorGraph, w: torch.Tensor, X: torch.Tensor,
+                      scatter: segment.ScatterPlan) -> torch.Tensor:
+    """The edge part of the rotation operator: the gradient of
+    sum_e w_e |X_j - X_i Rij|_F^2 scattered to the nodes."""
+    Rij = g.edge_meas.R
+    wr = w[:, None, None]
+    d = X[g.edge_j] - X[g.edge_i] @ Rij
+    gi = -(d @ Rij.transpose(-1, -2))
+    return scatter(wr * gi, wr * d)
 
 
 def _hat_cols(M: torch.Tensor) -> torch.Tensor:
@@ -109,9 +134,9 @@ def _residuals_and_jac(R: torch.Tensor, t: torch.Tensor, g: FactorGraph):
     ri_tij = (Ri @ tij[..., None])[..., 0]
     e_t = ri_tij + ti - tj
     E = ei.shape[0]
-    z93 = torch.zeros((E, 9, 3), device=R.device)
-    z33 = torch.zeros((E, 3, 3), device=R.device)
-    eye3 = torch.eye(3, device=R.device).expand(E, 3, 3)
+    z93 = torch.zeros((E, 9, 3), dtype=R.dtype, device=R.device)
+    z33 = torch.zeros((E, 3, 3), dtype=R.dtype, device=R.device)
+    eye3 = torch.eye(3, dtype=R.dtype, device=R.device).expand(E, 3, 3)
     J = {
         "phi_i": torch.cat([_hat_cols(Mi), -so3.hat(ri_tij)], dim=1),
         "dt_i": torch.cat([z93, eye3], dim=1),
@@ -141,6 +166,25 @@ def _jt(Jb: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (Jb.transpose(-1, -2) @ v[..., None])[..., 0]
 
 
+def _jtw(J, v: torch.Tensor, scatter) -> torch.Tensor:
+    """J^T v scattered to the nodes: (N, 6) from per-edge rows v (E, 12)."""
+    bi = torch.cat([_jt(J["phi_i"], v), _jt(J["dt_i"], v)], dim=1)
+    bj = torch.cat([_jt(J["phi_j"], v), _jt(J["dt_j"], v)], dim=1)
+    return scatter(bi, bj)
+
+
+def _jtwj(J, row_w: torch.Tensor, x: torch.Tensor, g: FactorGraph, scatter) -> torch.Tensor:
+    """J^T W J x scattered to the nodes, x (N, 6) [phi, dt]."""
+    xi, xj = x[g.edge_i], x[g.edge_j]
+    Jx = (
+        (J["phi_i"] @ xi[:, 0:3, None])[..., 0]
+        + (J["dt_i"] @ xi[:, 3:6, None])[..., 0]
+        + (J["phi_j"] @ xj[:, 0:3, None])[..., 0]
+        + (J["dt_j"] @ xj[:, 3:6, None])[..., 0]
+    )
+    return _jtw(J, row_w * Jx, scatter)
+
+
 def _hessian_diag(J, row_w, scatter):
     """(N, 6) diagonal of the GN normal matrix (Jacobi preconditioner)."""
     di = torch.cat([_jt(J["phi_i"] ** 2, row_w), _jt(J["dt_i"] ** 2, row_w)], dim=1)
@@ -152,44 +196,34 @@ def optimize(
     g: FactorGraph,
     anchors: torch.Tensor,
     config: PGOConfig = PGOConfig(),
+    group=None,
 ) -> Pose:
     """Full two-stage chordal optimization. Returns optimized poses
     (invalid nodes keep their input pose). `anchors`: (N,) bool — one
-    per connected component."""
+    per connected component. `group`: the edges are this rank's block
+    and every edge scatter is all-reduced over the group (module
+    docstring); `backend/distributed.optimize` cuts the block."""
     N = g.node_capacity
     scatter = scatter_plan(g)
-    R = rotation_init(g, anchors, config.rot_cg_iters, scatter=scatter)
+    R = rotation_init(g, anchors, config.rot_cg_iters, scatter=scatter, group=group)
     R = torch.where(g.node_valid[:, None, None], R, g.poses.R)
     t = g.poses.t
     aw = anchors.to(torch.float32) * config.anchor_weight
     anchor_R0, anchor_t0 = g.poses.R, g.poses.t
-    ei, ej = g.edge_i, g.edge_j
 
     for _ in range(config.gn_iters):
         r, J = _residuals_and_jac(R, t, g)
         row_w = _edge_block_weight(g, r, config.robust_delta)
 
         def Hx(x):
-            xi, xj = x[ei], x[ej]
-            Jx = (
-                (J["phi_i"] @ xi[:, 0:3, None])[..., 0]
-                + (J["dt_i"] @ xi[:, 3:6, None])[..., 0]
-                + (J["phi_j"] @ xj[:, 0:3, None])[..., 0]
-                + (J["dt_j"] @ xj[:, 3:6, None])[..., 0]
-            )
-            WJx = row_w * Jx
-            gi = torch.cat([_jt(J["phi_i"], WJx), _jt(J["dt_i"], WJx)], dim=1)
-            gj = torch.cat([_jt(J["phi_j"], WJx), _jt(J["dt_j"], WJx)], dim=1)
-            return scatter(gi, gj) + (aw[:, None] + config.damping) * x
+            return _preduce(_jtwj(J, row_w, x, g, scatter), group) \
+                + (aw[:, None] + config.damping) * x
 
-        Wr = row_w * r
-        bi = torch.cat([_jt(J["phi_i"], Wr), _jt(J["dt_i"], Wr)], dim=1)
-        bj = torch.cat([_jt(J["phi_j"], Wr), _jt(J["dt_j"], Wr)], dim=1)
-        b = -scatter(bi, bj)
+        b = -_preduce(_jtw(J, row_w * r, scatter), group)
         # anchor residual pull (keep anchors at their initial pose)
         phi_anchor = so3.log(R @ anchor_R0.transpose(-1, -2))
         b = b - aw[:, None] * torch.cat([phi_anchor, t - anchor_t0], dim=1)
-        diag = _hessian_diag(J, row_w, scatter) + aw[:, None] + config.damping
+        diag = _preduce(_hessian_diag(J, row_w, scatter), group) + aw[:, None] + config.damping
         Minv = 1.0 / torch.clamp(diag, min=1e-8)
 
         x = torch.zeros((N, 6), device=t.device)

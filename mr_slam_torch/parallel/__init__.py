@@ -1,2 +1,2 @@
-"""Multi-robot state (port of `mr_slam_tpu/parallel/`: `store`). The
-mesh and multi-process modules (`mesh`, `multihost`) are not ported."""
+"""Multi-robot state and the multi-process runtime (port of
+`mr_slam_tpu/parallel/`: `store`, `mesh`, `multihost`)."""

@@ -16,9 +16,10 @@ old contents when the gate is closed, so a frame never waits on the
 device. `robot_view` returns views of one row, which the next write
 changes; a caller that keeps a view across frames clones it.
 
-Robot and slot indices are host integers. Single device only: the
-reference's sharded branch (`axis_name`, an all-gather over the mesh's
-robot axis) raises.
+Robot and slot indices are host integers. `cross_robot_distances`
+takes a process group for the reference's sharded branch: each rank
+holds its robots' rows, and the databases are all-gathered over the
+group along the robot axis (`parallel/mesh.all_gather`).
 """
 from __future__ import annotations
 
@@ -189,15 +190,19 @@ def write_descriptor(store: MultiRobotStore, robot: int, k: int, descriptor) -> 
 
 
 def cross_robot_distances(store: MultiRobotStore, queries: torch.Tensor,
-                          axis_name: str | None = None) -> torch.Tensor:
+                          group=None) -> torch.Tensor:
     """All-pairs squared L2 descriptor distances: queries (R, Q, D) per
-    robot against every robot's flat database. Returns (R, Q, R, K) with
-    invalid entries +inf. Single device only."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the sharded store (an all-gather over a mesh axis) is ROADMAP Queue 1 step 15"
-        )
+    robot against EVERY robot's flat database. With `group` the store
+    holds this rank's robots and the databases of all the group's ranks
+    are all-gathered along the robot axis first (the collective in place
+    of per-topic subscription). Returns (R_local, Q, R_total, K) with
+    invalid entries +inf."""
     db, valid = store.descriptors, store.desc_valid
+    if group is not None:
+        from . import mesh
+
+        db = mesh.all_gather(db, group).flatten(0, 1)
+        valid = mesh.all_gather(valid, group).flatten(0, 1)
     q2 = torch.sum(queries * queries, dim=-1)[..., None, None]
     d2 = torch.sum(db * db, dim=-1)[None, None]
     qd = torch.einsum("rqd,skd->rqsk", queries, db)

@@ -13,9 +13,10 @@ costmap (`build_elevation`), and the merged cloud (`compose_map`).
 
 Host Python orchestrates stage order and the small dynamic loop list;
 every heavy stage runs on the device `run` is given (the card unless the
-caller passes `device="cpu"`; a missing card raises). Single process
-only (the reference's multi-process loop exchange and sharded PGO are
-not ported). Each stage is a tracer span (`runtime/observability.py`);
+caller passes `device="cpu"`; a missing card raises). `run_backend`
+also runs as one rank of several (`parallel/multihost.run_multihost`):
+robot pairs shared out, accepted loops all-gathered, the pose graph
+solved edge-sharded. Each stage is a tracer span (`runtime/observability.py`);
 spans synchronize the device before they close so their wall times are
 the stage's own.
 """
@@ -437,14 +438,61 @@ def build_graph(robots: list[RobotResult], cfg: SlamConfig):
     return graph, node_of
 
 
-def run_backend(robots: list[RobotResult], cfg: SlamConfig) -> SlamResult:
+# the columns of a loop record in `_allgather_loops`
+_LOOP_FIELDS = 19
+
+
+def _allgather_loops(my_loops: list[tuple[int, dict]], max_loops: int, group,
+                     device="cpu") -> list[tuple[int, dict]]:
+    """Exchange each rank's accepted loops: pack them into a fixed
+    (max_loops, 19) float32 block [pair_idx, ra, kf_a, rb, kf_b, fitness,
+    desc_dist, R(9), t(3)] plus a count, all-gather both, and unpack
+    every rank's in rank order (the cross-host `Loops` message
+    exchange), `rel` on the CPU. The block travels from `device` (the
+    rank's, which NCCL needs). The indices travel as float32, exact
+    below 2^24; `rel`, `fitness` and `desc_dist` are float32 values and
+    arrive unchanged."""
+    from ..parallel import mesh
+
+    block = np.zeros((max_loops, _LOOP_FIELDS), np.float32)
+    for i, (pi, l) in enumerate(my_loops[:max_loops]):
+        ints = (pi, l["robot_a"], l["kf_a"], l["robot_b"], l["kf_b"])
+        if max(ints) >= 1 << 24:
+            raise ValueError(f"loop record index beyond float32's exact range: {ints}")
+        block[i, 0:7] = [*ints, l["fitness"], l["desc_dist"]]
+        block[i, 7:16] = l["rel"].R.reshape(-1).cpu().numpy()
+        block[i, 16:19] = l["rel"].t.cpu().numpy()
+    count = torch.tensor([min(len(my_loops), max_loops)], dtype=torch.int64, device=device)
+    blocks = mesh.all_gather(torch.from_numpy(block).to(device), group).cpu().numpy()  # (P, L, 19)
+    counts = mesh.all_gather(count, group).reshape(-1).tolist()
+    merged: list[tuple[int, dict]] = []
+    for p, c in enumerate(counts):
+        for row in blocks[p, :c]:
+            merged.append((int(row[0]), dict(
+                robot_a=int(row[1]), kf_a=int(row[2]), robot_b=int(row[3]), kf_b=int(row[4]),
+                rel=Pose(torch.from_numpy(row[7:16].reshape(3, 3).copy()),
+                         torch.from_numpy(row[16:19].copy())),
+                fitness=float(row[5]), desc_dist=float(row[6]),
+            )))
+    return merged
+
+
+def run_backend(robots: list[RobotResult], cfg: SlamConfig, group=None) -> SlamResult:
     """Back-end stages on finished front-end products: descriptors, graph
     build, loop retrieval + verification, per-pair PCM, chordal PGO.
-    Single process (the reference's `pgo_mesh` path is not ported)."""
+    Deterministic given identical inputs, so several processes run it
+    redundantly (`parallel/multihost.py`). With `group` (a process
+    group), robot pairs are shared out over its ranks (pair index modulo
+    the ranks), the accepted loops all-gathered (`_allgather_loops`), and
+    the pose graph solved with its edges sharded over the ranks
+    (`backend/distributed.py`); every rank returns the same result.
+    Without one, the single-process run."""
     from . import loopstage
+    from ..parallel import mesh
 
     R = len(robots)
     dev = robots[0].store.xyz.device
+    n_ranks, rank = mesh.size(group), mesh.rank(group)
     with obs.tracer.span("backend.prepare"):
         descs = [compute_descriptors(rr.store, cfg) for rr in robots]
         _sync(dev)
@@ -454,24 +502,31 @@ def run_backend(robots: list[RobotResult], cfg: SlamConfig) -> SlamResult:
 
     # Each unordered pair once (ra == rb: self). Inter-robot pairs sweep
     # first so dense same-robot revisits cannot starve them of the
-    # max_loops budget.
+    # max_loops budget. Sorting the merged loops by pair index keeps
+    # every rank's list in the single process's order.
     pairs = sorted(
         ((ra, rb) for ra in range(R) for rb in range(ra + 1)),
         key=lambda p: p[0] == p[1],
     )
-    loops: list[dict] = []
+    my_loops: list[tuple[int, dict]] = []
     with obs.tracer.span("backend.associate"):
-        for ra, rb in pairs:
+        for pi, (ra, rb) in enumerate(pairs):
+            if pi % n_ranks != rank:
+                continue
             found = loopstage.search_pair_loops(
                 robots[ra].store, descs[ra], robots[rb].store, descs[rb],
                 cfg, same_robot=(ra == rb),
             )
             for l in found:
-                loops.append(dict(
+                my_loops.append((pi, dict(
                     robot_a=ra, kf_a=l["kf_a"], robot_b=rb, kf_b=l["kf_b"],
                     rel=l["rel"], fitness=l["fitness"], desc_dist=l["desc_dist"],
-                ))
+                )))
         _sync(dev)
+        if group is not None:
+            my_loops = [(pi, dict(l, rel=l["rel"].to(dev)))
+                        for pi, l in _allgather_loops(my_loops, cfg.loops.max_loops, group, dev)]
+    loops = [l for _, l in sorted(my_loops, key=lambda x: x[0])]
     loops = loops[: cfg.loops.max_loops]
     obs.metrics.inc("backend.loops_found", len(loops))
 
@@ -511,7 +566,13 @@ def run_backend(robots: list[RobotResult], cfg: SlamConfig) -> SlamResult:
         pose_cg_iters=cfg.pgo.pose_cg_iters, robust_delta=cfg.pgo.robust_delta,
     )
     with obs.tracer.span("backend.solve"):
-        opt = chordal.optimize(graph, torch.as_tensor(anchors, device=dev), pgo_cfg)
+        anchors = torch.as_tensor(anchors, device=dev)
+        if group is None:
+            opt = chordal.optimize(graph, anchors, pgo_cfg)
+        else:
+            from ..backend import distributed
+
+            opt = distributed.optimize(graph, anchors, group, pgo_cfg)
         _sync(dev)
     return SlamResult(
         robots=robots, graph=graph, opt_poses=opt, node_of=node_of, loops=accepted,

@@ -43,6 +43,7 @@ def test_port_imports_without_jax():
     assert set(PLACE_RECOGNITION_MODULES) <= set(walked[1:])
     assert set(FRONTEND_MODULES) <= set(walked[1:])
     assert set(CLOSURE_MODULES) <= set(walked[1:])
+    assert set(MULTIPROCESS_MODULES) <= set(walked[1:])
 
 
 # the streaming slice: session, store, TF, checkpoint, artifacts, replay
@@ -75,6 +76,32 @@ CLOSURE_MODULES = [
     "mr_slam_torch.eval.graphgen", "mr_slam_torch.eval.reference_solver",
     "mr_slam_torch.eval.visualize", "mr_slam_torch.examples.demo_synthetic",
 ]
+
+
+# the multi-process runtime: meshes, edge-sharded and decentralized PGO,
+# sharded terrain features, the worker and the examples that drive it
+MULTIPROCESS_MODULES = [
+    "mr_slam_torch.parallel.mesh", "mr_slam_torch.parallel.multihost",
+    "mr_slam_torch.backend.distributed", "mr_slam_torch.backend.gauss_seidel",
+    "mr_slam_torch.mapping.sharded_elevation", "mr_slam_torch.examples.multihost_worker",
+    "mr_slam_torch.examples.bench_multiprocess", "mr_slam_torch.examples.bench_scaling",
+    "mr_slam_torch.examples.run_pgo_g2o",
+]
+
+
+def test_every_reference_module_has_a_port_file():
+    """Each module of the reference package has a file of the same path
+    in the port, except those whose counterpart has another name."""
+    renamed = {"ops/pallas_vgicp.py": "ops/hopper_vgicp.py",
+               "ops/pallas_stencil.py": "ops/hopper_stencil.py",
+               "native/__init__.py": "native.py"}
+    ref = ROOT / "mr_slam_tpu"
+    missing = []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        if not (ROOT / "mr_slam_torch" / renamed.get(rel, rel)).exists():
+            missing.append(rel)
+    assert not missing, missing
 
 
 def test_reference_solver_shares_no_code_with_chordal():

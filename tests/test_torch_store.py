@@ -122,8 +122,6 @@ def test_cross_robot_distances_match_reference():
     ref = np.asarray(jstore.cross_robot_distances(j, jnp.asarray(q)))
     assert out.shape == (2, 3, 2, 4)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="step 15"):
-        tstore.cross_robot_distances(t, torch.from_numpy(q), axis_name="robot")
 
 
 def test_row_growth_matches_reference():

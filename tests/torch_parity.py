@@ -180,15 +180,32 @@ def graph_to_torch(g, device="cpu"):
     return tg
 
 
-def graph_to_jax(g):
-    """A port `FactorGraph` as the reference's, through numpy."""
+def graph_astype(g, dtype):
+    """A port `FactorGraph` with its poses, measurements and weights in
+    `dtype` (a float32 graph cast to float64 keeps its values)."""
+    P = type(g.poses)
+    return g._replace(poses=P(g.poses.R.to(dtype), g.poses.t.to(dtype)),
+                      edge_meas=P(g.edge_meas.R.to(dtype), g.edge_meas.t.to(dtype)),
+                      edge_w_rot=g.edge_w_rot.to(dtype), edge_w_trans=g.edge_w_trans.to(dtype))
+
+
+def graph_to_jax(g, dtype=None):
+    """A port `FactorGraph` (or `graph_to_numpy`'s arrays) as the
+    reference's, through numpy; its float arrays in `dtype` when given
+    (float64 needs JAX's x64 mode)."""
+    import jax
     import jax.numpy as jnp
 
     from mr_slam_tpu.backend import factor_graph as jfg
     from mr_slam_tpu.geometry import se3 as jse3
 
-    a = graph_to_numpy(g)
-    jg = jfg.init(*a["capacity"])
+    a = g if isinstance(g, dict) else graph_to_numpy(g)
+    jg = jfg.init(*(int(c) for c in a["capacity"]))
+    if dtype is not None:
+        jg = jax.tree.map(lambda x: x.astype(dtype) if jnp.issubdtype(x.dtype, jnp.floating)
+                          else x, jg)
+        a = {k: (v.astype(dtype) if isinstance(v, np.ndarray) and v.dtype.kind == "f" else v)
+             for k, v in a.items()}
     jg, _ = jfg.add_nodes_batch(jg, jse3.Pose(jnp.asarray(a["R"]), jnp.asarray(a["t"])),
                                 jnp.asarray(a["robot"], jnp.int32))
     jg, _ = jfg.add_edges_batch(
