@@ -1,6 +1,6 @@
 """Pairwise Consistency Maximization inter-robot loop gating (port of
-`mr_slam_tpu/backend/pcm.py`: `consistency_matrix`, `filter_loops`,
-`max_clique`, `max_clique_greedy`, `intra_cycle_distances`).
+`mr_slam_tpu/backend/pcm.py`: `CHI2_6DOF`, `consistency_matrix`,
+`filter_loops`, `max_clique`, `max_clique_greedy`, `intra_cycle_distances`).
 
 Two loops are consistent when the cycle
 Z_k^-1 (x_{a_k}^-1 x_{a_l}) Z_l (x_{b_l}^-1 x_{b_k}) is near identity
@@ -18,6 +18,17 @@ import torch
 from .. import native
 from ..geometry import se3
 from ..geometry.se3 import Pose
+
+# chi2 inverse CDF at 6 dof for the reference's pcm_thresh table
+# (`pairwise_consistency.cpp:7-38`: threshold prob -> chi2 value)
+CHI2_6DOF = {
+    0.01: 0.872,
+    0.05: 1.635,
+    0.10: 2.204,
+    0.25: 3.455,
+    0.50: 5.348,
+    0.75: 7.840,
+}
 
 
 def consistency_matrix(

@@ -238,6 +238,7 @@ def main() -> None:
 def launch(n_procs: int, env: dict | None = None, timeout_s: float = 600.0,
            log_dir: str | os.PathLike | None = None, independent: bool = False) -> list[str]:
     """Run `n_procs` workers of this module on this host, ranks 0..n-1
+    (LOCAL_WORLD_SIZE n: every rank is on this host)
     meeting at a fresh file `<log_dir>/rdzv` (which no other process can
     take the way it can take a port found free; one process: no group).
     `independent`: the workers run side by side, each alone with no
@@ -250,7 +251,7 @@ def launch(n_procs: int, env: dict | None = None, timeout_s: float = 600.0,
     base = dict(os.environ)
     base.update(env or {})
     for k in ("PYTEST_CURRENT_TEST", "MRSLAM_COORDINATOR", "MRSLAM_NUM_PROCESSES",
-              "MRSLAM_PROCESS_ID"):
+              "MRSLAM_PROCESS_ID", "LOCAL_WORLD_SIZE"):
         base.pop(k, None)
     base["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in base.get("PYTHONPATH", "").split(os.pathsep) if p])
@@ -262,7 +263,8 @@ def launch(n_procs: int, env: dict | None = None, timeout_s: float = 600.0,
         e = dict(base)
         if n_procs > 1 and not independent:
             e.update(MRSLAM_COORDINATOR=f"file://{logs / 'rdzv'}",
-                     MRSLAM_NUM_PROCESSES=str(n_procs), MRSLAM_PROCESS_ID=str(pid))
+                     MRSLAM_NUM_PROCESSES=str(n_procs), MRSLAM_PROCESS_ID=str(pid),
+                     LOCAL_WORLD_SIZE=str(n_procs))
         f = open(logs / f"worker{pid}.log", "w")
         files.append(f)
         procs.append(subprocess.Popen([sys.executable, "-m", "mr_slam_torch.examples.multihost_worker"],
@@ -292,9 +294,13 @@ def launch(n_procs: int, env: dict | None = None, timeout_s: float = 600.0,
     return texts
 
 
-def _bench_env(n_robots: int, n_frames: int, device: str, reps: int) -> dict:
-    return dict(MRSLAM_BENCH="1", MRSLAM_BENCH_REPS=str(reps), MRSLAM_DEVICE=device,
-                MRSLAM_ROBOTS=str(n_robots), MRSLAM_FRAMES=str(n_frames))
+def _bench_env(n_robots: int, n_frames: int, device: str, reps: int,
+               input_path: str | os.PathLike | None = None) -> dict:
+    env = dict(MRSLAM_BENCH="1", MRSLAM_BENCH_REPS=str(reps), MRSLAM_DEVICE=device,
+               MRSLAM_ROBOTS=str(n_robots), MRSLAM_FRAMES=str(n_frames))
+    if input_path is not None:
+        env["MRSLAM_INPUT"] = str(input_path)
+    return env
 
 
 def _bench_records(texts: list[str]) -> list[dict]:
@@ -306,12 +312,14 @@ def _bench_records(texts: list[str]) -> list[dict]:
 
 
 def bench(n_procs: int, n_robots: int, n_frames: int, device: str = "cuda", reps: int = 3,
-          timeout_s: float = 900.0, log_dir=None) -> dict:
+          timeout_s: float = 900.0, log_dir=None, input_path=None) -> dict:
     """Front-end frames/s of `n_robots` robots over `n_procs` worker
     processes of one group (MRSLAM_BENCH mode): process 0's JSON record,
-    with its `split_ms` (front-ends, feed, replication)."""
-    texts = launch(n_procs, _bench_env(n_robots, n_frames, device, reps), timeout_s=timeout_s,
-                   log_dir=log_dir)
+    with its `split_ms` (front-ends, feed, replication). `input_path`:
+    an MRSLAM_INPUT file whose scans and config replace `scenario()`'s
+    (`n_robots` and `n_frames` are then its own)."""
+    texts = launch(n_procs, _bench_env(n_robots, n_frames, device, reps, input_path),
+                   timeout_s=timeout_s, log_dir=log_dir)
     return _bench_records(texts[:1])[0]
 
 

@@ -26,8 +26,10 @@ the single-process run on the same device, bit for bit.
 
 The backend follows from the layout, chosen here and not by trial:
 gloo on the CPU; NCCL when each rank has its own card; gloo when
-several ranks share one card, since NCCL refuses two ranks of one
-communicator on one device. Gloo runs `all_reduce` and `all_gather` on
+several ranks of one host share a card, since NCCL refuses two ranks of
+one communicator on one device. The layout is read per host
+(LOCAL_WORLD_SIZE), so ranks spread over hosts of one card each take
+NCCL. Gloo runs `all_reduce` and `all_gather` on
 CUDA tensors (through pinned host copies), which is all the port uses.
 """
 from __future__ import annotations
@@ -49,15 +51,22 @@ TIMEOUT_S = 300.0  # a rank that dies cannot hold the others in a collective lon
 
 
 def choose_backend(device: torch.device, num_processes: int) -> tuple[str, str]:
-    """(backend, why) for `num_processes` ranks on one host, each on
-    `device`'s type."""
+    """(backend, why) for `num_processes` ranks, each on `device`'s type,
+    decided from the ranks on THIS host: the LOCAL_WORLD_SIZE that
+    `multihost_worker.launch` (or torchrun) sets, else `num_processes`
+    (every rank on this host). NCCL when this host's ranks have a card
+    each, gloo when some of them share one (NCCL refuses two ranks of one
+    communicator on one device) or run on the CPU. So two hosts of one
+    card each, one rank a host, take NCCL."""
     if device.type != "cuda":
         return "gloo", "CPU ranks"
+    local_processes = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
     cards = torch.cuda.device_count()
-    if num_processes > cards:
-        return "gloo", (f"{num_processes} ranks share {cards} card(s): NCCL refuses two ranks "
-                        "of one communicator on one device")
-    return "nccl", f"{num_processes} ranks on {cards} cards, one card a rank"
+    if local_processes > cards:
+        return "gloo", (f"{local_processes} ranks on this host share {cards} card(s): NCCL "
+                        "refuses two ranks of one communicator on one device")
+    return "nccl", (f"{local_processes} of {num_processes} ranks on this host's {cards} "
+                    "card(s), one card a rank")
 
 
 def initialize(

@@ -103,6 +103,13 @@ def test_pcm_matches_reference(seed):
     assert not keep[bad].any() and keep.sum() >= len(ia) - len(bad) - 1
 
 
+def test_chi2_table_is_the_reference_s():
+    """The chi2 thresholds of the reference's pcm_thresh table, key for
+    key and value for value."""
+    assert tpcm.CHI2_6DOF == jpcm.CHI2_6DOF
+    assert list(tpcm.CHI2_6DOF) == list(jpcm.CHI2_6DOF)
+
+
 def test_native_max_clique_is_exact():
     adj = np.zeros((6, 6), bool)
     for a, b in [(0, 1), (0, 2), (1, 2), (2, 3), (3, 4), (4, 5), (3, 5)]:

@@ -44,6 +44,7 @@ def test_port_imports_without_jax():
     assert set(FRONTEND_MODULES) <= set(walked[1:])
     assert set(CLOSURE_MODULES) <= set(walked[1:])
     assert set(MULTIPROCESS_MODULES) <= set(walked[1:])
+    assert set(LONGRUN_MODULES) <= set(walked[1:])
 
 
 # the streaming slice: session, store, TF, checkpoint, artifacts, replay
@@ -87,6 +88,10 @@ MULTIPROCESS_MODULES = [
     "mr_slam_torch.examples.bench_multiprocess", "mr_slam_torch.examples.bench_scaling",
     "mr_slam_torch.examples.run_pgo_g2o",
 ]
+
+
+# the reference's long-horizon run
+LONGRUN_MODULES = ["mr_slam_torch.examples.bench_longrun"]
 
 
 def test_every_reference_module_has_a_port_file():

@@ -123,3 +123,51 @@ def test_bench_split_and_cores_roof(tmp_path):
     assert [r["processes"] for r in recs] == [1, 1]   # each alone, no group
     assert worker.bench_roof(2, 3, "cpu", reps=1, timeout_s=300,
                              log_dir=tmp_path / "roof2") > 0
+
+
+@pytest.mark.parametrize("device, cards, num, local, want", [
+    ("cpu", 0, 4, None, "gloo"),     # CPU ranks
+    ("cuda", 1, 3, "3", "gloo"),     # three ranks of one host share its card
+    ("cuda", 1, 3, None, "gloo"),    # no LOCAL_WORLD_SIZE: every rank on this host
+    ("cuda", 2, 3, "3", "gloo"),     # more local ranks than cards
+    ("cuda", 4, 4, "4", "nccl"),     # one host, one card a rank
+    ("cuda", 4, 4, None, "nccl"),    # the same, every rank on this host by default
+    ("cuda", 1, 2, "1", "nccl"),     # two hosts of one card each, one rank a host
+    ("cuda", 2, 8, "2", "nccl"),     # four hosts of two cards
+])
+def test_choose_backend_reads_this_host(monkeypatch, device, cards, num, local, want):
+    from mr_slam_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if local is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local)
+    backend, why = multihost.choose_backend(torch.device(device), num)
+    assert backend == want, why
+
+
+def test_launch_tells_each_worker_its_local_layout(tmp_path, monkeypatch):
+    """`launch` sets LOCAL_WORLD_SIZE for every worker of a group (all its
+    ranks are on this host), and none for independent workers; the
+    worker reads it in `choose_backend`."""
+    import subprocess
+
+    seen = []
+
+    class Fake:
+        def __init__(self, args, env, **kw):
+            seen.append(env.get("LOCAL_WORLD_SIZE"))
+            self.returncode = 0
+
+        def poll(self):
+            return 0
+
+        def wait(self):
+            return 0
+
+    monkeypatch.setattr(subprocess, "Popen", Fake)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "7")  # the caller's own is not passed on
+    worker.launch(3, {}, log_dir=tmp_path / "group")
+    worker.launch(2, {}, log_dir=tmp_path / "alone", independent=True)
+    assert seen == ["3", "3", "3", None, None]

@@ -561,3 +561,48 @@ def lio_phase5_reference():
     odo = tuple(chip_smoke.positions_ate(np.asarray(rr.odom_poses.t), t)
                 for rr, t in zip(res.robots, trajs))
     return kf, odo, sum(l["robot_a"] != l["robot_b"] for l in res.loops)
+
+
+# --------------------------------------------------------------------------
+# the reference behind `chip_smoke.JAX_REF_LONGRUN` and `test_torch_longrun`
+# --------------------------------------------------------------------------
+
+
+def longrun_config_jax(R: int):
+    """The reference long run's `SlamConfig`, built as
+    `examples/bench_longrun.py:44-55` builds it."""
+    from mr_slam_tpu.runtime.config import KeyframeCfg, LoopCfg, OdometryCfg, PGOCfg, SlamConfig
+
+    return SlamConfig(
+        n_robots=R,
+        odometry=OdometryCfg(scan_capacity=8192, insert_capacity=16384),
+        keyframes=KeyframeCfg(dist_thresh=2.0, capacity=256, points_per_kf=4096),
+        loops=LoopCfg(dist_thresh=0.75, min_separation=8, candidates=2,
+                      fitness_thresh=0.15, max_loops=256),
+        pgo=PGOCfg(rot_cg_iters=120, gn_iters=30, pose_cg_iters=120,
+                   node_capacity=1024, edge_capacity=4096),
+    )
+
+
+def longrun_reference(T: int = 120, rings: int = 64, azimuth: int = 1024, R: int = 3):
+    """The reference's `pipeline.run` (JAX on the CPU) on the port's numpy
+    scans of `bench_longrun.scenario(T, R, rings, azimuth)` with the long
+    run's config. Returns (per-robot
+    keyframe ATE in m, keyframe counts, inter-robot loops, loops). Run
+    from the repository root (`chip_smoke.JAX_REF_LONGRUN`):
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import longrun_reference; \\
+            print(longrun_reference(120))"
+    """
+    from mr_slam_torch.examples import bench_longrun
+    from mr_slam_tpu.eval import metrics as jmet
+    from mr_slam_tpu.runtime import pipeline as jpipe
+
+    trajs, scans = bench_longrun.scenario(T, R, rings, azimuth)
+    res = jpipe.run([cloud_to_jax(s) for s in scans], longrun_config_jax(len(trajs)),
+                    origins=[pose_to_jax(tse3.index(t, 0)) for t in trajs])
+    ates = tuple(float(jmet.ate(res.optimized_trajectory(r), pose_to_jax(
+        tse3.index(t, torch.as_tensor(res.robots[r].kf_frame_idx)))).rmse)
+        for r, t in enumerate(trajs))
+    kfs = tuple(int(rr.store.count) for rr in res.robots)
+    return ates, kfs, sum(l["robot_a"] != l["robot_b"] for l in res.loops), len(res.loops)
