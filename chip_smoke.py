@@ -39,7 +39,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                per-robot keyframe ATE < 1 m and within 1.25 x the JAX
                reference + 0.05 m (JAX_REF_ATE), and a second run gives
                bit-identical optimized poses. Prints stage times,
-               frames/s, peak device memory and loop counts.
+               frames/s, peak device memory and loop counts. Then robot
+               0's 40 frames through the eager frame loop and through
+               `run_frontend`'s CUDA graphs (`frontend_graphs`): poses,
+               keyframe store and flags bit-equal; frames/s, host launch
+               calls, device kernels and host syncs a frame of both;
+               the graphs' captures, capture seconds and pool memory.
   6. map     — the products of phase 5's result on the card:
                `pipeline.compose_map` and `pipeline.build_elevation(size=
                600)`. Checks: the stencil kernel launched, the costmap
@@ -114,7 +119,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                `pipeline.run` with every robot on the LIO front-end, IMU
                packets and per-point times (the VGICP kernel launched, >= 1 inter-robot loop, keyframe ATE < 1 m
                and within 1.25 x the JAX reference + 0.05 m, a second run
-               bit-identical; frames/s, peak memory); one LIO frame stage
+               bit-identical; frames/s, peak memory); robot 0's 40
+               scan2map frames with point times and its 40 LIO frames
+               through the eager frame loop and the CUDA graphs
+               (`frontend_graphs`: bit-equal, frames/s; the LIO run's
+               launches and syncs a frame too); one LIO frame stage
                by stage (device kernels, host launch calls and ms of
                propagate, undistort, the downsamples, update and its
                24x24 solves, insert; `lio.step` makes no host sync);
@@ -197,16 +206,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                counts within LONGRUN_KF_BAND of the reference's
                (JAX_REF_LONGRUN), >= 1 inter-robot loop, no
                `*capacity_saturated` counter, the VGICP kernel launched,
-               robot 0's front-end rerun bit-identical, the first launch
+               robot 0's front-end rerun (CUDA graphs) and its eager
+               frame loop bit-identical to the run's, the first launch
                of the run's verification held against the plain version
                (`check_vgicp`), and every launch of one
                `verify_chunk` of the run's loops held to it on inliers, H
                and cost (TOL) and b (B_SUM_RTOL). Prints the run's
                `bench_longrun` record, peak device memory, the phase's
                wall, and a `torch.profiler` table over robot 0's first
-               LONGRUN_PROFILE_FRAMES frames and one `verify_chunk`: the
-               top 15 device ops, device-busy time against the wall and
-               the device idle share of each.
+               LONGRUN_PROFILE_FRAMES frames (CUDA graphs), one
+               `verify_chunk`, the same frames through the eager frame
+               loop and twice as many frames through the graphs: the top
+               15 device ops, device-busy time against the wall and the
+               device idle share of each, and of the graphs' frames
+               past the first LONGRUN_PROFILE_FRAMES (the difference of
+               the two graph regions); the front-end's frames/s through
+               the graphs and the eager loop.
 
 Every kernel check of phases 3, 4, 6, 8, 11 and 12 prints, for its shape, the
 device time (`graph_ms`: calls captured in a CUDA graph, replays timed
@@ -902,6 +917,7 @@ def phase_main(dev):
         if JAX_REF_ATE is not None and not a <= 1.25 * JAX_REF_ATE[r] + 0.05:
             raise AssertionError(f"robot {r} ATE {a:.3f} m beyond 1.25 x JAX {JAX_REF_ATE[r]} + 0.05")
     frontend_s = [spans[f"robot{r}.frontend"]["total_s"] for r in range(N_ROBOTS)]
+    frontend_graphs("phase 5 robot 0, scan2map", dev, scans[0], cfg.for_robot(0), origins[0])
     return launches, res, scans, cfg, trajs, host_scans, frontend_s
 
 
@@ -1884,8 +1900,8 @@ def positions_ate(est_t, traj) -> float:
 
 
 def count_launches(fn):
-    """(kernels the profiler saw on the device, kernel-launch API calls on
-    the host) of one call of fn()."""
+    """(kernels the profiler saw on the device, launch API calls on the
+    host: kernel launches and CUDA-graph launches) of one call of fn()."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1895,8 +1911,151 @@ def count_launches(fn):
         torch.cuda.synchronize()
     ka = prof.key_averages()
     dev_n = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
-    host_n = sum(e.count for e in ka if "LaunchKernel" in e.key)
+    host_n = sum(e.count for e in ka if "LaunchKernel" in e.key or "GraphLaunch" in e.key)
     return dev_n, host_n
+
+
+# The frames of `frontend_graphs`' counts: every capture happens before
+# frame 8 (the fine decay's at frame 7), and frames 8-11 hold one coarse
+# insert (frame 8), as one frame in four does.
+FRAME_COUNT_SPAN = (8, 12)
+
+
+def frame_window_counts(run, owner, name, first, last, after):
+    """Device kernels, host launch calls (kernel and graph launches), host
+    copy / set calls and host syncs a frame over frames first..last-1 of
+    run(). The window opens and closes at calls of `owner.name`, a
+    function called once a frame: at its end when `after` (the eager
+    loops' `kf.maybe_add`), at its start otherwise (the graph runner's
+    `frame_graph._load_frame`). Inside the window `torch.profiler` traces
+    (as `count_launches` counts) and PyTorch's sync debug mode reports
+    (as `count_syncs` counts); the device is synchronized at both
+    edges."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    orig = getattr(owner, name)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    calls = [0]
+
+    def edge():
+        if calls[0] == first:
+            torch.cuda.synchronize()
+            prof.start()
+            torch.cuda.set_sync_debug_mode("warn")
+        elif calls[0] == last:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            prof.stop()
+
+    def hooked(*args, **kw):
+        if not after:
+            edge()
+        out = orig(*args, **kw)
+        calls[0] += 1
+        if after:
+            edge()
+        return out
+
+    setattr(owner, name, hooked)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        setattr(owner, name, orig)
+        torch.cuda.set_sync_debug_mode("default")
+    ka = prof.key_averages()
+    n = last - first
+    return dict(
+        kernels=sum(e.count for e in ka if e.device_type == DeviceType.CUDA) / n,
+        launch_calls=sum(e.count for e in ka if "LaunchKernel" in e.key
+                         or "GraphLaunch" in e.key) / n,
+        copy_calls=sum(e.count for e in ka if e.device_type == DeviceType.CPU
+                       and e.key.startswith(("cudaMemcpy", "cudaMemset"))) / n,
+        syncs=sum("synchroniz" in str(w.message) for w in caught) / n)
+
+
+def frontend_graphs(tag, dev, scans, cfg, origin, imu=None, times=None, counts=True):
+    """One robot's front-end through the eager frame loop
+    (`pipeline._frontend_scan2map` / `_frontend_lio`, the oracle) and
+    through `run_frontend`'s CUDA graphs (`pipeline._frontend_graphs`)
+    on the card. Fails unless poses, keyframe store and keyframe flags
+    are bit-equal. Prints both front-ends' frames/s (host clock around
+    the synchronized run, after a 3-frame warm-up of each), the graphs'
+    captures, replays, capture seconds and pool memory, and with
+    `counts` the device kernels, host launch calls, host copy calls and
+    host syncs a frame of both over the frames FRAME_COUNT_SPAN
+    (`frame_window_counts`). Returns those numbers."""
+    import torch
+
+    from mr_slam_torch.ops import pointcloud as pcl
+    from mr_slam_torch.runtime import pipeline
+
+    def head(n):
+        return (pcl.PointCloud(scans.xyz[:n], scans.mask[:n]),
+                None if times is None else times[:n],
+                None if imu is None else tuple(x[:n - 1] for x in imu))
+
+    def eager(n):
+        sc, tm, im = head(n)
+        if im is not None:
+            return pipeline._frontend_lio(sc, im, cfg, origin, tm)
+        return pipeline._frontend_scan2map(sc, cfg, origin, tm)
+
+    def graphs(n):
+        sc, tm, im = head(n)
+        return pipeline._frontend_graphs(sc, cfg, origin, im, tm)
+
+    T = scans.xyz.shape[0]
+    out = {}
+    for name, fn in (("eager", eager), ("graphs", graphs)):
+        fn(3)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(T)
+        torch.cuda.synchronize()
+        out[name] = dict(fps=T / (time.perf_counter() - t), res=res)
+    want = out["eager"]["res"]
+    got = out["graphs"]["res"]
+    same = dict(
+        poses=torch.equal(got.poses.R, want[0].R) and torch.equal(got.poses.t, want[0].t),
+        store=all(torch.equal(getattr(got.store, f), getattr(want[1], f))
+                  for f in ("xyz", "mask", "stamps", "count"))
+        and torch.equal(got.store.poses.R, want[1].poses.R)
+        and torch.equal(got.store.poses.t, want[1].poses.t),
+        flags=torch.equal(got.added, want[2]))
+    stats = got.stats
+    log(f"[graphs] {tag}, {T} frames: bit-equal to the eager loop: {same}; frames/s eager "
+        f"{out['eager']['fps']:.2f}, graphs {out['graphs']['fps']:.2f}; {stats['captures']} "
+        f"captures in {stats['capture_s']:.3f} s, {stats['replays']} replays, graph pool "
+        f"{stats['pool_bytes'] / 2**20:.1f} MiB")
+    if counts:
+        from mr_slam_torch.frontend import keyframes
+        from mr_slam_torch.runtime import frame_graph
+
+        a, b = FRAME_COUNT_SPAN
+        t = time.perf_counter()
+        out["eager"].update(frame_window_counts(lambda: eager(b), keyframes, "maybe_add", a, b,
+                                                after=True))
+        out["graphs"].update(frame_window_counts(lambda: graphs(b + 1), frame_graph, "_load_frame",
+                                                 a, b, after=False))
+        e, g = out["eager"], out["graphs"]
+        log(f"[graphs] {tag}, a frame (frames {a}-{b - 1}; counted in "
+            f"{time.perf_counter() - t:.1f} s): host launch calls eager {e['launch_calls']:.1f}, "
+            f"graphs {g['launch_calls']:.1f}; host copy / set calls eager {e['copy_calls']:.1f}, "
+            f"graphs {g['copy_calls']:.1f}; device kernels eager {e['kernels']:.1f}, graphs "
+            f"{g['kernels']:.1f}; host syncs eager {e['syncs']:.2f}, graphs {g['syncs']:.2f}")
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: the CUDA graphs differ from the eager loop: {same}")
+    if stats["captures"] < 1 or stats["replays"] < T - 1:
+        raise AssertionError(f"{tag}: the front-end did not replay graphs: {stats}")
+    for name in out:
+        out[name].pop("res")
+    return dict(out, stats=stats)
 
 
 def _check_band(tag, ates, ref):
@@ -2213,12 +2372,26 @@ def feature_run(dev):
 def phase_lio(dev, cfg):
     """Phase 9 (see the module docstring). Returns (VGICP launches of its
     main-path runs, the numbers it printed)."""
+    from mr_slam_torch.geometry import se3
+    from mr_slam_torch.ops import pointcloud as pcl
+
     t = time.perf_counter()
     sc = lio_scenario()
     log(f"[lio] inputs built on the host in {time.perf_counter() - t:.1f} s: {N_ROBOTS} robots x "
         f"{LIO_FRAMES} frames ({LIO_REST} at rest) x {RINGS}x{AZIMUTH} rays, IMU packets of "
         f"{LIO_IMU_SUB} samples, scans sheared by their sweep's motion")
     batch_launches, batch = lio_batch(dev, sc, cfg)
+    origin = se3.index(sc["trajs"][0], 0).to(dev)
+    graphs = dict(
+        s2m=frontend_graphs("phase 9 robot 0, scan2map with point times", dev,
+                            pcl.PointCloud(sc["s2m"][0].xyz.to(dev), sc["s2m"][0].mask.to(dev)),
+                            cfg.for_robot(0), origin, times=sc["s2m_times"][0].to(dev),
+                            counts=False),
+        lio=frontend_graphs("phase 9 robot 0, LIO", dev,
+                            pcl.PointCloud(sc["lio"][0].xyz.to(dev), sc["lio"][0].mask.to(dev)),
+                            lio_config(cfg).for_robot(0), origin,
+                            imu=tuple(x.to(dev) for x in sc["imus"][0]),
+                            times=sc["lio_times"][0].to(dev)))
     prof = lio_frame_profile(dev, sc, cfg)
     s2m = s2m_compensation(dev, sc, cfg)
     sess_launches, sess = lio_session(dev, sc, cfg)
@@ -2226,7 +2399,7 @@ def phase_lio(dev, cfg):
     log(f"[lio] vgicp_accum launches in phase 9: LIO pipeline.run {batch_launches}, LIO session "
         f"{sess_launches}")
     return batch_launches + sess_launches, dict(batch=batch, profile=prof, s2m=s2m, session=sess,
-                                                feat=feat)
+                                                feat=feat, graphs=graphs)
 
 
 # --------------------------------------------------------------------------
@@ -3016,16 +3189,32 @@ def phase_longrun(dev):
         f"{out['loops']} ({inter} inter-robot); JAX reference {JAX_REF_LONGRUN}")
 
     # bit-identity: robot 0's front-end again, against the gated run's
+    origin0 = se3.index(trajs[0], 0).to(dev)
     t0 = time.perf_counter()
-    again = pipeline.run_frontend(scans[0], cfg.for_robot(0), se3.index(trajs[0], 0).to(dev))
+    again = pipeline.run_frontend(scans[0], cfg.for_robot(0), origin0)
+    rerun_s = time.perf_counter() - t0
     first = res.robots[0]
     same = (torch.equal(again.odom_poses.R, first.odom_poses.R)
             and torch.equal(again.odom_poses.t, first.odom_poses.t)
             and all(torch.equal(getattr(again.store, f), getattr(first.store, f))
                     for f in ("xyz", "mask", "stamps", "count"))
             and np.array_equal(again.kf_frame_idx, first.kf_frame_idx))
-    log(f"[longrun] robot 0's front-end rerun ({time.perf_counter() - t0:.1f} s) bit-identical "
+    log(f"[longrun] robot 0's front-end rerun ({rerun_s:.1f} s) bit-identical "
         f"to the gated run's (odometry, keyframe store, keyframe frames): {same}")
+    # the same frames through the eager frame loop, the CUDA graphs' oracle
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e_poses, e_store, e_added = pipeline._frontend_scan2map(scans[0], cfg.for_robot(0), origin0,
+                                                            None)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_same = (torch.equal(e_poses.R, first.odom_poses.R) and torch.equal(e_poses.t, first.odom_poses.t)
+                  and all(torch.equal(getattr(e_store, f), getattr(first.store, f))
+                          for f in ("xyz", "mask", "stamps", "count"))
+                  and np.array_equal(np.flatnonzero(e_added.cpu().numpy()), first.kf_frame_idx))
+    log(f"[longrun] robot 0's front-end, {T} frames: CUDA graphs (the rerun) {T / rerun_s:.2f} "
+        f"frames/s, the eager frame loop {T / eager_s:.2f} frames/s; the eager loop bit-equal to "
+        f"the gated run's (odometry, keyframe store, keyframe frames): {eager_same}")
 
     # the captured launch against the plain version
     if not captured:
@@ -3058,14 +3247,22 @@ def phase_longrun(dev):
     F = LONGRUN_PROFILE_FRAMES
     head = pcl.PointCloud(scans[0].xyz[:F], scans[0].mask[:F])
     regions.insert(0, (f"robot 0 front-end, {F} frames",
-                       lambda: pipeline.run_frontend(head, cfg.for_robot(0),
-                                                     se3.index(trajs[0], 0).to(dev))))
+                       lambda: pipeline.run_frontend(head, cfg.for_robot(0), origin0)))
+    regions.append((f"robot 0 front-end, {F} frames, the eager frame loop",
+                    lambda: pipeline._frontend_scan2map(head, cfg.for_robot(0), origin0, None)))
+    head2 = pcl.PointCloud(scans[0].xyz[:2 * F], scans[0].mask[:2 * F])
+    regions.append((f"robot 0 front-end, {2 * F} frames",
+                    lambda: pipeline.run_frontend(head2, cfg.for_robot(0), origin0)))
     walls, ops = profile_regions(regions)
     busy_all = sum(b for _, b in walls.values())
     for name, (w, b) in walls.items():
         share = "not measured (no device records)" if b == 0 else f"{100 * (1 - b / w):.1f} %"
         log(f"[longrun] profile {name}: wall {1e3 * w:.2f} ms, device busy {1e3 * b:.2f} ms, "
             f"device idle share {share}")
+    (w1, b1), (w2, b2) = walls[f"robot 0 front-end, {F} frames"], walls[f"robot 0 front-end, {2 * F} frames"]
+    log(f"[longrun] CUDA-graph front-end's frames {F}-{2 * F - 1} (the {2 * F}- less the {F}-frame "
+        f"region; no capture among them): wall {1e3 * (w2 - w1) / F:.2f} ms a frame, device busy "
+        f"{1e3 * (b2 - b1) / F:.2f} ms a frame, device idle share {100 * (1 - (b2 - b1) / (w2 - w1)):.1f} %")
     top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:15]
     log(f"[longrun] top {len(top)} device ops of the profiled regions (calls, device ms, share of "
         f"busy):")
@@ -3080,6 +3277,8 @@ def phase_longrun(dev):
         raise AssertionError("the VGICP kernel was not launched on the long run")
     if not same:
         raise AssertionError("robot 0's front-end rerun differs from the gated run's")
+    if not eager_same:
+        raise AssertionError("robot 0's eager front-end differs from the gated run's CUDA graphs")
     if inter < 1:
         raise AssertionError(f"no inter-robot loop accepted (all: {out['loops']})")
     if saturated:

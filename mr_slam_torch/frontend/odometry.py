@@ -6,7 +6,12 @@
 
 `state.frame` is a host integer, so the reference's `lax.cond`s on the
 frame counter (first frame, decay and coarse-map cadences) are plain
-Python `if`s with no device sync; `run` is a Python loop over frames.
+Python `if`s with no device sync. `step` is cut into its stages
+(`predict`, `register_coarse`, `register_fine`, `insert_fine`,
+`decay_fine`, `insert_coarse`) at its two SO(3) projections and at its
+host branches; `run` drives them through `runtime/frame_graph`, whose
+CUDA graphs replay them on the card (the counterpart of the
+reference's `lax.scan`).
 """
 from __future__ import annotations
 
@@ -60,6 +65,75 @@ def init(config: OdometryConfig, origin: Pose | None = None, device=None) -> Odo
     )
 
 
+def predict(pose: Pose, prev_pose: Pose, scan: pcl.PointCloud, config: OdometryConfig,
+            t_rel: torch.Tensor | None = None, scan_period: float = 0.1):
+    """A step's first stage: the constant-velocity prediction, the motion
+    compensation (with `t_rel`) and the registration downsample. Returns
+    (pred, the compensated scan, ds)."""
+    motion = se3.between(prev_pose, pose)
+    pred = se3.compose(pose, motion)
+    if t_rel is not None:
+        scan = preprocess.undistort_constant_velocity(scan, t_rel, motion, scan_period)
+    ds = pcl.voxel_downsample(scan, config.scan_leaf, config.scan_capacity, bounds=_BOUNDS)
+    return pred, scan, ds
+
+
+def register_coarse(ds: pcl.PointCloud, coarse_grid: voxel_grid.VoxelGrid, pred: Pose,
+                    config: OdometryConfig) -> registration.RegistrationResult:
+    """The coarse stage: the 4x-leaf grid, direct27 probes, a wide basin.
+    The pose is not yet projected onto SO(3) (`se3.normalize`)."""
+    ds_coarse = pcl.voxel_downsample(ds, 2.0 * config.scan_leaf, max(config.scan_capacity // 4, 256))
+    return registration.point_to_plane_icp_raw(
+        ds_coarse, coarse_grid, pred, iters=4,
+        max_corr_dist=8.0 * config.map_leaf, neighbors="direct27", inner=1,
+    )
+
+
+def register_fine(ds: pcl.PointCloud, grid: voxel_grid.VoxelGrid, coarse_pose: Pose,
+                  config: OdometryConfig) -> registration.RegistrationResult:
+    """The fine stage: the annealed direct7 pass from the projected coarse
+    pose. The pose is not yet projected onto SO(3)."""
+    sched = None
+    if config.anneal and config.iters >= 6:
+        q = max(config.iters // 4, 1)
+        sched = ((q, 4), (q, 2), (config.iters - 2 * q, 1))
+    return registration.point_to_plane_icp_raw(
+        ds, grid, coarse_pose, iters=config.iters,
+        max_corr_dist=config.max_corr_dist, neighbors="direct7", inner=2,
+        schedule=sched,
+    )
+
+
+def insert_fine(grid: voxel_grid.VoxelGrid, scan: pcl.PointCloud, pose: Pose,
+                config: OdometryConfig) -> voxel_grid.VoxelGrid:
+    """Insert a finer cloud than the registration cloud, so map cells
+    carry real covariance structure."""
+    fine = pcl.voxel_downsample(scan, config.insert_leaf, config.insert_capacity, bounds=_BOUNDS)
+    return voxel_grid.insert(grid, pcl.transform(fine, pose))
+
+
+def decay_fine(grid: voxel_grid.VoxelGrid, pose: Pose,
+               config: OdometryConfig) -> voxel_grid.VoxelGrid:
+    """The fine map's moving-FOV trim (every `decay_every` frames)."""
+    return voxel_grid.decay(grid, pose.t, config.map_radius)
+
+
+def insert_coarse(coarse_grid: voxel_grid.VoxelGrid, ds: pcl.PointCloud, pose: Pose,
+                  config: OdometryConfig) -> voxel_grid.VoxelGrid:
+    """The coarse map's insert and trim (every `coarse_every` frames and
+    on the first four)."""
+    coarse_grid = voxel_grid.insert(coarse_grid, pcl.transform(ds, pose))
+    return voxel_grid.decay(coarse_grid, pose.t, config.map_radius)
+
+
+def decays(frame: int, config: OdometryConfig) -> bool:
+    return frame % config.decay_every == config.decay_every - 1
+
+
+def inserts_coarse(frame: int, config: OdometryConfig) -> bool:
+    return frame % config.coarse_every == 0 or frame < 4
+
+
 def step(
     state: OdometryState,
     scan: pcl.PointCloud,
@@ -77,51 +151,27 @@ def step(
     `TransformToStart`); the registered and inserted clouds are the
     compensated one. `shed`: skip the map-refinement half (fine insert +
     decay) — the load-shedding mode; the pose still registers against
-    the map."""
-    motion = se3.between(state.prev_pose, state.pose)
-    pred = se3.compose(state.pose, motion)
-    if t_rel is not None:
-        scan = preprocess.undistort_constant_velocity(scan, t_rel, motion, scan_period)
-    ds = pcl.voxel_downsample(scan, config.scan_leaf, config.scan_capacity, bounds=_BOUNDS)
+    the map.
 
+    The stages are the functions above, called in turn; the CUDA-graph
+    runner (`runtime/frame_graph.py`) calls the same ones, with the two
+    SO(3) projections between its graphs."""
+    pred, scan, ds = predict(state.pose, state.prev_pose, scan, config, t_rel, scan_period)
     if state.frame > 0:
-        # coarse stage: 4x-leaf grid, direct27 probes, wide basin
-        ds_coarse = pcl.voxel_downsample(
-            ds, 2.0 * config.scan_leaf, max(config.scan_capacity // 4, 256),
-        )
-        coarse = registration.point_to_plane_icp(
-            ds_coarse, state.coarse_grid, pred, iters=4,
-            max_corr_dist=8.0 * config.map_leaf, neighbors="direct27", inner=1,
-        )
-        sched = None
-        if config.anneal and config.iters >= 6:
-            q = max(config.iters // 4, 1)
-            sched = ((q, 4), (q, 2), (config.iters - 2 * q, 1))
-        res = registration.point_to_plane_icp(
-            ds, state.grid, coarse.pose, iters=config.iters,
-            max_corr_dist=config.max_corr_dist, neighbors="direct7", inner=2,
-            schedule=sched,
-        )
-        new_pose, err, inliers = res.pose, res.error, res.num_inliers
+        coarse = register_coarse(ds, state.coarse_grid, pred, config)
+        res = register_fine(ds, state.grid, se3.normalize(coarse.pose), config)
+        new_pose, err, inliers = se3.normalize(res.pose), res.error, res.num_inliers
     else:
         zero = torch.zeros((), device=pred.t.device)
         new_pose, err, inliers = pred, zero, zero
 
-    if shed:
-        grid, coarse_grid = state.grid, state.coarse_grid
-    else:
-        # insert a finer cloud than the registration cloud so map cells
-        # carry real covariance structure
-        fine = pcl.voxel_downsample(
-            scan, config.insert_leaf, config.insert_capacity, bounds=_BOUNDS
-        )
-        grid = voxel_grid.insert(state.grid, pcl.transform(fine, new_pose))
-        if state.frame % config.decay_every == config.decay_every - 1:
-            grid = voxel_grid.decay(grid, new_pose.t, config.map_radius)
-        coarse_grid = state.coarse_grid
-        if state.frame % config.coarse_every == 0 or state.frame < 4:
-            coarse_grid = voxel_grid.insert(coarse_grid, pcl.transform(ds, new_pose))
-            coarse_grid = voxel_grid.decay(coarse_grid, new_pose.t, config.map_radius)
+    grid, coarse_grid = state.grid, state.coarse_grid
+    if not shed:
+        grid = insert_fine(grid, scan, new_pose, config)
+        if decays(state.frame, config):
+            grid = decay_fine(grid, new_pose, config)
+        if inserts_coarse(state.frame, config):
+            coarse_grid = insert_coarse(coarse_grid, ds, new_pose, config)
     new_state = OdometryState(
         grid=grid, coarse_grid=coarse_grid, pose=new_pose,
         prev_pose=state.pose, frame=state.frame + 1,
@@ -131,12 +181,12 @@ def step(
 
 def run(scans: pcl.PointCloud, config: OdometryConfig, origin: Pose | None = None):
     """Offline odometry over a stacked (T, N, 3)/(T, N) sequence; returns
-    (final state, (T,) trajectory, diagnostics)."""
-    state = init(config, origin, device=scans.xyz.device)
-    poses, errs, inls = [], [], []
-    for i in range(scans.xyz.shape[0]):
-        state, diag = step(state, pcl.PointCloud(scans.xyz[i], scans.mask[i]), config)
-        poses.append(state.pose)
-        errs.append(diag["error"])
-        inls.append(diag["inliers"])
-    return state, se3.stack(poses), {"error": torch.stack(errs), "inliers": torch.stack(inls)}
+    (final state, (T,) trajectory, diagnostics). On the card the frames
+    replay as CUDA graphs (`runtime/frame_graph.scan2map`), on the CPU
+    the same stages run eagerly."""
+    from ..runtime import frame_graph
+
+    if origin is None:
+        origin = se3.identity(device=scans.xyz.device)
+    out = frame_graph.scan2map(scans, config, origin)
+    return out.state, out.poses, {"error": out.error, "inliers": out.inliers}

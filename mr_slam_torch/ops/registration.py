@@ -13,7 +13,9 @@ launches it once on a CUDA tensor with the pose applied inside.
 Ported: `RegistrationResult`, `_gn_update`, `_uncenter`, `_select_best`,
 `_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B),
 `vgicp` (batched; direct1 without source covariances runs the kernel,
-every other case the general matrix path), `point_to_plane_icp`,
+every other case the general matrix path), `point_to_plane_icp` (and
+`point_to_plane_icp_raw`, the same GN steps without the final SO(3)
+projection),
 `loam_icp` (with `pooled_moments`, shared with the LIO update; the
 reference's `so3_hat` is `so3.hat`), `point_to_point_icp`,
 `_regularized_covs`, `gicp`, `fitness` and `register_pair`. The
@@ -274,7 +276,31 @@ def point_to_plane_icp(
     planes pooled from the matched cell and its neighbour cells, with a
     nearest-single-cell fallback. Association rounds x `inner` GN steps
     against the cached planes; `schedule` as in `_vgicp_direct1`.
-    Single cloud: source (N, 3), target (H, 16), init ()."""
+    Single cloud: source (N, 3), target (H, 16), init ().
+    `point_to_plane_icp_raw`, then `se3.normalize` of the pose."""
+    res = point_to_plane_icp_raw(source, target, init, iters, max_corr_dist, damping, tol,
+                                 neighbors, inner, schedule)
+    return res._replace(pose=se3.normalize(res.pose))
+
+
+def point_to_plane_icp_raw(
+    source: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+    neighbors: str = "direct7",
+    inner: int = 4,
+    schedule: tuple | None = None,
+) -> RegistrationResult:
+    """`point_to_plane_icp` up to its last step: the pose's rotation is
+    the product of the GN steps, not yet projected onto SO(3). The
+    projection (`so3.project`, an SVD that syncs the host on the card)
+    is left to the caller, so the odometry's CUDA graphs
+    (`runtime/frame_graph.py`) end here and the projection runs between
+    them."""
     if schedule is None:
         schedule = _default_schedule(iters, inner)
     max_corr2 = _f32_square(max_corr_dist)
@@ -323,8 +349,7 @@ def point_to_plane_icp(
             n_in = torch.sum(w)
     fit = fitness(source, target, pose, max_range=1.0)
     return RegistrationResult(
-        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
-        converged=last_dx < tol,
+        pose=pose, num_inliers=n_in, error=cost, fitness=fit, converged=last_dx < tol,
     )
 
 

@@ -34,6 +34,7 @@ from ..geometry import se3
 from ..geometry.se3 import Pose
 from ..loop import bev, disco, fast_histogram, m2dp, ring, scancontext
 from ..ops import pointcloud as pcl
+from . import frame_graph
 from . import observability as obs
 from .config import SlamConfig
 
@@ -149,6 +150,22 @@ def _frontend_scan2map(scans: pcl.PointCloud, cfg: SlamConfig, origin: Pose,
     return se3.stack(poses), store, torch.stack(added)
 
 
+def _frontend_graphs(scans: pcl.PointCloud, cfg: SlamConfig, origin: Pose,
+                     imu: tuple | None, times: torch.Tensor | None) -> frame_graph.Run:
+    """`run_frontend`'s front-end through `frame_graph` (CUDA graphs on
+    the card): the poses, store and keyframe flags of the loops above,
+    and the runner's counts (`Run.stats`)."""
+    dev = scans.xyz.device
+    store = kf.init(cfg.keyframes.capacity, cfg.keyframes.points_per_kf, dev)
+    gate = dict(dist_thresh=cfg.keyframes.dist_thresh, leaf=cfg.keyframes.leaf)
+    if cfg.odometry.frontend == "lio" and imu is not None:
+        return frame_graph.lio(scans, imu, _lio_config(cfg), origin,
+                               extrinsic=_lio_extrinsic(cfg, dev), times=times, store=store,
+                               gate=gate)
+    return frame_graph.scan2map(scans, _odometry_config(cfg), origin, times=times, store=store,
+                                gate=gate)
+
+
 def run_frontend(
     scans: pcl.PointCloud,
     cfg: SlamConfig,
@@ -166,19 +183,22 @@ def run_frontend(
     both front-ends (IMU-interpolated in LIO, constant-velocity in
     scan2map).
 
-    A Python loop over frames that reads none of its results on the
-    host: the keyframe flags come back once, at the end. (A scan2map
-    step still syncs inside `so3.project`, whose `torch.linalg.svd`
-    checks cuSOLVER's status; a LIO step does not sync.)"""
+    On the card each frame from the second on replays CUDA graphs
+    (`frame_graph.scan2map` / `frame_graph.lio`, the counterpart of the
+    reference's fused `lax.scan`): scan2map replays its segments between
+    the two eager SO(3) projections of a step (`so3.project`'s
+    `torch.linalg.svd` syncs the host, 4 syncs a frame), a LIO frame is
+    one graph and no sync. On the CPU the same segments run eagerly. The
+    results equal the eager frame loops (`_frontend_scan2map`,
+    `_frontend_lio`, kept as the oracle) bit for bit on either device;
+    the keyframe flags come back to the host once, at the end."""
     dev = scans.xyz.device
     if origin is None:
         origin = se3.identity(device=dev)
     with obs.tracer.span("frontend"):
-        if cfg.odometry.frontend == "lio" and imu is not None:
-            poses, store, added = _frontend_lio(scans, imu, cfg, origin, times)
-        else:
-            poses, store, added = _frontend_scan2map(scans, cfg, origin, times)
-        kf_frames = np.flatnonzero(added.cpu().numpy())
+        out = _frontend_graphs(scans, cfg, origin, imu, times)
+        poses, store = out.poses, out.store
+        kf_frames = np.flatnonzero(out.added.cpu().numpy())
         _sync(dev)
     if int(store.count) >= cfg.keyframes.capacity:
         import warnings

@@ -103,23 +103,12 @@ def _chain(sc, r, ocfg, dev, undistort_on_cpu=False):
 
 def _stages(st, scan, t_rel, ocfg):
     """`odometry.step`'s stages from state st for one frame."""
-    from mr_slam_torch.frontend import odometry, preprocess
+    from mr_slam_torch.frontend import odometry
     from mr_slam_torch.geometry import se3
-    from mr_slam_torch.ops import pointcloud as pcl
-    from mr_slam_torch.ops import registration
 
-    motion = se3.between(st.prev_pose, st.pose)
-    pred = se3.compose(st.pose, motion)
-    und = preprocess.undistort_constant_velocity(scan, t_rel, motion, cs.LIO_PERIOD)
-    ds = pcl.voxel_downsample(und, ocfg.scan_leaf, ocfg.scan_capacity, bounds=odometry._BOUNDS)
-    ds_coarse = pcl.voxel_downsample(ds, 2.0 * ocfg.scan_leaf, max(ocfg.scan_capacity // 4, 256))
-    coarse = registration.point_to_plane_icp(ds_coarse, st.coarse_grid, pred, iters=4,
-                                             max_corr_dist=8.0 * ocfg.map_leaf,
-                                             neighbors="direct27", inner=1)
-    q = max(ocfg.iters // 4, 1)
-    fine = registration.point_to_plane_icp(ds, st.grid, coarse.pose, iters=ocfg.iters,
-                                           max_corr_dist=ocfg.max_corr_dist, neighbors="direct7",
-                                           inner=2, schedule=((q, 4), (q, 2), (ocfg.iters - 2 * q, 1)))
+    pred, und, ds = odometry.predict(st.pose, st.prev_pose, scan, ocfg, t_rel, cs.LIO_PERIOD)
+    coarse = odometry.register_coarse(ds, st.coarse_grid, pred, ocfg)
+    fine = odometry.register_fine(ds, st.grid, se3.normalize(coarse.pose), ocfg)
     return dict(undistorted=und.xyz, downsampled=ds.xyz, coarse=coarse.pose.t, fine=fine.pose.t)
 
 
