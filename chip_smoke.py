@@ -45,6 +45,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                keyframe store and flags bit-equal; frames/s, host launch
                calls, device kernels and host syncs a frame of both;
                the graphs' captures, capture seconds and pool memory.
+               Every verify chunk of the first timed run (CUDA graphs,
+               `runtime/verify_graph.py`) held after the run to
+               `loopstage._verify_chunk_eager` on the same inputs
+               (`VerifyRecord`): rel and fit bit-equal, the same rows
+               accepted, the VGICP launches the graphs counted equal to
+               the eager chunks'; the runners' captures, replays,
+               capture seconds and pool MiB; one chunk of the first
+               inter-robot pair through both paths: bit-equal, host
+               launch calls and device kernels of each
+               (`chunk_launch_counts`).
   6. map     — the products of phase 5's result on the card:
                `pipeline.compose_map` and `pipeline.build_elevation(size=
                600)`. Checks: the stencil kernel launched, the costmap
@@ -83,6 +93,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                (`sequence_artifact.generate`: 2 robots x 24 frames at
                64x1024 rays, 0.3 laps, under `mr_slam_torch/build/`;
                `run_session(device=cuda)`: 48 frames, ATE < 0.5 m).
+               The stream's verify chunks are held to the eager chunk
+               as in phase 5 (`VerifyRecord`).
                Prints add_frame frames/s per robot, the online span
                totals, loop stages, peak device memory, the host syncs
                per frame and their sites (`count_syncs`), the
@@ -101,7 +113,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                reference + 0.05 m (JAX_REF_RING_ATE), >= 1 inter-robot
                loop, the VGICP kernel launched at B = 16 (two seeds x 8
                candidates) and one such launch held against its plain
-               version; the 10.2 m / 0.9 rad offset loop of the
+               version, its verify chunks (S = 2 seeds) held to the eager
+               chunk as in phase 5; the 10.2 m / 0.9 rad offset loop of the
                reference's `tests/test_loop_verify.py` at 32x1024
                (`offset_case`) recovered to 1 m by the RING seeds and
                not by yaw-only seeding; recall@1..5 of every method on a
@@ -209,13 +222,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                robot 0's front-end rerun (CUDA graphs) and its eager
                frame loop bit-identical to the run's, the first launch
                of the run's verification held against the plain version
-               (`check_vgicp`), and every launch of one
-               `verify_chunk` of the run's loops held to it on inliers, H
-               and cost (TOL) and b (B_SUM_RTOL). Prints the run's
+               (`check_vgicp`), the run's verify chunks held to the eager
+               chunk as in phase 5, and every launch of one eager verify
+               chunk of the run's loops held to the plain version on
+               inliers, H and cost (TOL) and b (B_SUM_RTOL); that chunk's
+               host launch calls through both paths. Prints the run's
                `bench_longrun` record, peak device memory, the phase's
                wall, and a `torch.profiler` table over robot 0's first
-               LONGRUN_PROFILE_FRAMES frames (CUDA graphs), one
-               `verify_chunk`, the same frames through the eager frame
+               LONGRUN_PROFILE_FRAMES frames (CUDA graphs), that verify
+               chunk eager and replayed from its CUDA graphs, the same
+               frames through the eager frame
                loop and twice as many frames through the graphs: the top
                15 device ops, device-busy time against the wall and the
                device idle share of each, and of the graphs' frames
@@ -880,7 +896,8 @@ def phase_main(dev):
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
-    res, wall = run()
+    with VerifyRecord() as verified:
+        res, wall = run()
     launches = hopper_vgicp.launch_count()
     peak = torch.cuda.max_memory_allocated()
     spans = obs.tracer.report()
@@ -901,9 +918,12 @@ def phase_main(dev):
     ates = [_ate(res, trajs, r) for r in range(N_ROBOTS)]
     log(f"[main] keyframe ATE per robot (m): {[round(a, 4) for a in ates]}; JAX reference "
         f"{JAX_REF_ATE}")
+    verified.check("phase 5 pipeline.run", cfg.loops.fitness_thresh)
     res2, wall2 = run()
     same = torch.equal(res.opt_poses.t, res2.opt_poses.t) and torch.equal(res.opt_poses.R, res2.opt_poses.R)
-    log(f"[main] second run wall {wall2:.3f} s; optimized poses bit-identical across runs: {same}")
+    log(f"[main] second run wall {wall2:.3f} s (backend.associate "
+        f"{obs.tracer.report()['backend.associate']['total_s']:.3f} s); optimized poses "
+        f"bit-identical across runs: {same}")
 
     if launches <= 0:
         raise AssertionError("the VGICP kernel was not launched on the main path")
@@ -918,6 +938,7 @@ def phase_main(dev):
             raise AssertionError(f"robot {r} ATE {a:.3f} m beyond 1.25 x JAX {JAX_REF_ATE[r]} + 0.05")
     frontend_s = [spans[f"robot{r}.frontend"]["total_s"] for r in range(N_ROBOTS)]
     frontend_graphs("phase 5 robot 0, scan2map", dev, scans[0], cfg.for_robot(0), origins[0])
+    chunk_launch_counts("phase 5", *verify_chunk_paths(res, cfg, dev))
     return launches, res, scans, cfg, trajs, host_scans, frontend_s
 
 
@@ -1144,6 +1165,156 @@ def count_frame_syncs(sess, frames):
     return out
 
 
+# --------------------------------------------------------------------------
+# loop verification's CUDA graphs (`runtime/verify_graph.py`) against the
+# eager chunk: phases 5, 7, 8 and 12
+# --------------------------------------------------------------------------
+
+
+def _store_copy(store):
+    """What a verify chunk reads of a keyframe store, copied."""
+    from mr_slam_torch.frontend import keyframes as kf
+
+    return kf.KeyframeStore(xyz=store.xyz.clone(), mask=store.mask.clone(),
+                            poses=_clone(store.poses), stamps=None, count=store.count.clone(),
+                            last_pose=None)
+
+
+class VerifyRecord:
+    """Every verify chunk of a main-path run, held to the eager chunk.
+
+    Inside `with VerifyRecord() as rec:` each pair's verifier
+    (`verify_graph.verifier`) is wrapped: what its chunks read of the
+    pair's stores (clouds, masks, poses, counts, seed sinograms) is copied
+    when it is made, and each chunk's inputs, its result and the VGICP
+    launches it counted are kept. `rec.check(tag, gate)` then runs
+    `loopstage._verify_chunk_eager` on every kept chunk (after the run,
+    so its spans and walls hold no oracle time) and fails unless `rel`
+    and `fit` are bit-equal, the rows each chunk accepts (fitness below
+    `gate`) are the same, and the graph path counted as many VGICP
+    launches as the eager chunks made; the eager chunks' launches are
+    then taken back from the counts. Prints those numbers and each kept
+    runner's chunks, captures, replays, capture seconds and graph-pool
+    MiB."""
+
+    def __enter__(self):
+        from mr_slam_torch.runtime import verify_graph
+
+        self.records = []
+        self._make = verify_graph.verifier
+        verify_graph.verifier = self._verifier
+        return self
+
+    def __exit__(self, *exc):
+        from mr_slam_torch.runtime import verify_graph
+
+        verify_graph.verifier = self._make
+
+    def _verifier(self, store_a, store_b, cfg, same_robot, descs_a=None, descs_b=None, **kw):
+        from mr_slam_torch.ops import hopper_vgicp
+
+        verify = self._make(store_a, store_b, cfg, same_robot, descs_a, descs_b, **kw)
+        sinos = [None if d is None else {k: d[k].clone() for k in ("sino", "sino_pp") if k in d}
+                 for d in (descs_a, descs_b)]
+        pair = (_store_copy(store_a), _store_copy(store_b), cfg, same_robot, *sinos)
+
+        def recorded(ia, ib, yaw):
+            n = hopper_vgicp.launch_count()
+            rel, fit = verify(ia, ib, yaw)
+            self.records.append((pair, ia.clone(), ib.clone(), yaw.clone(), rel, fit,
+                                 hopper_vgicp.launch_count() - n))
+            return rel, fit
+
+        return recorded
+
+    def check(self, tag, gate):
+        import torch
+
+        from mr_slam_torch.ops import hopper_vgicp
+        from mr_slam_torch.runtime import loopstage, verify_graph
+
+        t = time.perf_counter()
+        before = hopper_vgicp.launches_by_batch()
+        graph_n = sum(r[-1] for r in self.records)
+        eager_n, bad, rows = 0, [], 0
+        for i, (pair, ia, ib, yaw, rel, fit, _) in enumerate(self.records):
+            n = hopper_vgicp.launch_count()
+            wrel, wfit = loopstage._verify_chunk_eager(pair[0], pair[1], ia, ib, yaw, *pair[2:])
+            eager_n += hopper_vgicp.launch_count() - n
+            acc = fit < gate
+            rows += int(acc.sum())
+            if not (torch.equal(rel.R, wrel.R) and torch.equal(rel.t, wrel.t)
+                    and torch.equal(fit, wfit) and torch.equal(acc, wfit < gate)):
+                bad.append(i)
+        after = hopper_vgicp.launches_by_batch()
+        hopper_vgicp.add_launches({b: before.get(b, 0) - n for b, n in after.items()})
+        runners = verify_graph.stats()
+        log(f"[verify] {tag}: {len(self.records)} chunks through the CUDA graphs, held to "
+            f"_verify_chunk_eager in {time.perf_counter() - t:.1f} s: rel and fit bit-equal in "
+            f"{len(self.records) - len(bad)}, accepted rows equal ({rows} below the gate {gate}, "
+            f"padding included); vgicp_accum launches graphs {graph_n}, eager {eager_n}")
+        for r in runners:
+            log(f"[verify]   runner same_robot={r['same_robot']} seeds={r['seeds']} stores "
+                f"{r['store_a']} / {r['store_b']}: {r['chunks']} chunks, {r['captures']} captures "
+                f"in {r['capture_s']:.3f} s, {r['replays']} replays, graph pool "
+                f"{r['pool_bytes'] / 2**20:.1f} MiB")
+        n_chunks = len(self.records)
+        self.records.clear()
+        if bad:
+            raise AssertionError(f"{tag}: verify chunks {bad} differ from _verify_chunk_eager")
+        if graph_n != eager_n:
+            raise AssertionError(f"{tag}: the graphs counted {graph_n} VGICP launches, the eager "
+                                 f"chunks made {eager_n}")
+        if not n_chunks:
+            raise AssertionError(f"{tag}: no verify chunk ran")
+        return dict(chunks=n_chunks, launches=graph_n, runners=runners)
+
+
+def verify_chunk_paths(res, cfg, dev):
+    """(eager, graphs): one verify chunk of the run's first inter-robot
+    pair through `loopstage._verify_chunk_eager` and through the CUDA
+    graphs (a verifier made here, its stores loaded once: no other pair
+    of its key may be verified between its calls): up to CHUNK accepted
+    inter-robot loops of that pair, padded as `search_pair_loops` pads,
+    each seeded with the yaw of its accepted transform."""
+    import torch
+
+    from mr_slam_torch.runtime import loopstage, pipeline, verify_graph
+
+    ra, rb = next((l["robot_a"], l["robot_b"]) for l in res.loops if l["robot_a"] != l["robot_b"])
+    chosen = [l for l in res.loops if (l["robot_a"], l["robot_b"]) == (ra, rb)][:loopstage.CHUNK]
+    pad = loopstage.CHUNK - len(chosen)
+    yaw = [math.atan2(float(l["rel"].R[1, 0]), float(l["rel"].R[0, 0])) for l in chosen]
+    ia = torch.as_tensor([l["kf_a"] for l in chosen] + [0] * pad, device=dev)
+    ib = torch.as_tensor([l["kf_b"] for l in chosen] + [0] * pad, device=dev)
+    yw = torch.as_tensor(yaw + [0.0] * pad, dtype=torch.float32, device=dev)
+    sa, sb = res.robots[ra].store, res.robots[rb].store
+    descs = [pipeline.compute_descriptors(s, cfg) for s in (sa, sb)]
+    verify = verify_graph.verifier(sa, sb, cfg, False, descs[0], descs[1])
+    return (lambda: loopstage._verify_chunk_eager(sa, sb, ia, ib, yw, cfg, False,
+                                                  descs_a=descs[0], descs_b=descs[1]),
+            lambda: verify(ia, ib, yw))
+
+
+def chunk_launch_counts(tag, eager, graphs):
+    """One verify chunk through both paths (`verify_chunk_paths`), after a
+    warm-up that captures the graphs: bit-equal, and the host launch calls
+    and device kernels of each (`count_launches`). Returns them."""
+    import torch
+
+    graphs()
+    graphs()  # the runner's first chunk may be its eager one: this one replays
+    want, got = eager(), graphs()
+    same = (torch.equal(got[0].R, want[0].R) and torch.equal(got[0].t, want[0].t)
+            and torch.equal(got[1], want[1]))
+    (ek, el), (gk, gl) = count_launches(eager), count_launches(graphs)
+    log(f"[verify] {tag}, one chunk (B = 8): host launch calls eager {el}, graphs {gl}; device "
+        f"kernels eager {ek}, graphs {gk}; bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the replayed chunk differs from the eager chunk")
+    return dict(eager_calls=el, graph_calls=gl, eager_kernels=ek, graph_kernels=gk)
+
+
 def phase_online(dev, trajs, host_scans, cfg):
     """The online session on the card (see the module docstring).
     Returns (VGICP launches of the stream, stencil launches of the
@@ -1189,9 +1360,10 @@ def phase_online(dev, trajs, host_scans, cfg):
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
     t = time.perf_counter()
-    n_fed = replay.replay(frames, sess)
-    res = sess.result()
-    torch.cuda.synchronize()
+    with VerifyRecord() as verified:
+        n_fed = replay.replay(frames, sess)
+        res = sess.result()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t
     vgicp_launches = hopper_vgicp.launch_count()
     stream_stencil = hopper_stencil.launch_count()
@@ -1217,6 +1389,8 @@ def phase_online(dev, trajs, host_scans, cfg):
         f"({len(inter)} inter-robot), PCM rejected {counters.get('online.pcm_rejected', 0):.0f}; "
         f"TF publishes {counters.get('tf.publishes', 0):.0f}, compose runs "
         f"{counters.get('compose.runs', 0):.0f}")
+
+    verified.check("phase 7 online session", ocfg.loops.fitness_thresh)
 
     # ---- 2. the session's checks --------------------------------------
     opt_t = res.opt_poses.t.cpu().numpy()
@@ -1543,8 +1717,8 @@ def ring_run(dev, trajs, host_scans, cfg):
     captured = {}
     launch = hopper_vgicp.gn_accumulate
 
-    def spy(*args, **kw):  # keep one B = 16 call's inputs for the plain comparison
-        if args[0].shape[0] == 2 * 8 and not captured:
+    def spy(*args, **kw):  # keep one B = 16 launch's inputs for the plain comparison
+        if args[0].shape[0] == 2 * 8 and not captured and not torch.cuda.is_current_stream_capturing():
             captured.update(args=[_clone(a) for a in args], kw={k: _clone(v) for k, v in kw.items()})
         return launch(*args, **kw)
 
@@ -1555,8 +1729,9 @@ def ring_run(dev, trajs, host_scans, cfg):
     torch.cuda.synchronize()
     t = time.perf_counter()
     try:
-        res = pipeline.run(host_scans, rcfg, origins=origins, device=dev)
-        torch.cuda.synchronize()
+        with VerifyRecord() as verified:
+            res = pipeline.run(host_scans, rcfg, origins=origins, device=dev)
+            torch.cuda.synchronize()
     finally:
         hopper_vgicp.gn_accumulate = launch
     wall = time.perf_counter() - t
@@ -1576,6 +1751,7 @@ def ring_run(dev, trajs, host_scans, cfg):
         f"({len(inter)} inter-robot), PCM rejected {counters.get('backend.pcm_rejected', 0):.0f}; "
         f"keyframe ATE per robot (m) {[round(a, 4) for a in ates]}; JAX reference "
         f"{JAX_REF_RING_ATE} ({JAX_REF_RING_LOOPS} inter-robot loops)")
+    verified.check("phase 8 RING run", rcfg.loops.fitness_thresh)
     if not inter:
         raise AssertionError("the RING-seeded run accepted no inter-robot loop")
     for r, a in enumerate(ates):
@@ -3111,28 +3287,6 @@ def check_chunk_launches(tag, calls):
     return worst
 
 
-def longrun_verify_chunk(res, cfg, dev):
-    """One `loopstage.verify_chunk` at the loop stage's shape: up to
-    CHUNK accepted inter-robot loops of the run's first inter-robot pair,
-    padded as `search_pair_loops` pads, each seeded with the yaw of its
-    accepted transform."""
-    import torch
-
-    from mr_slam_torch.runtime import loopstage, pipeline
-
-    ra, rb = next((l["robot_a"], l["robot_b"]) for l in res.loops if l["robot_a"] != l["robot_b"])
-    chosen = [l for l in res.loops if (l["robot_a"], l["robot_b"]) == (ra, rb)][:loopstage.CHUNK]
-    pad = loopstage.CHUNK - len(chosen)
-    yaw = [math.atan2(float(l["rel"].R[1, 0]), float(l["rel"].R[0, 0])) for l in chosen]
-    ia = torch.as_tensor([l["kf_a"] for l in chosen] + [0] * pad, device=dev)
-    ib = torch.as_tensor([l["kf_b"] for l in chosen] + [0] * pad, device=dev)
-    yw = torch.as_tensor(yaw + [0.0] * pad, dtype=torch.float32, device=dev)
-    sa, sb = res.robots[ra].store, res.robots[rb].store
-    descs = [pipeline.compute_descriptors(s, cfg) for s in (sa, sb)]
-    return lambda: loopstage.verify_chunk(sa, sb, ia, ib, yw, cfg, False,
-                                          descs_a=descs[0], descs_b=descs[1])
-
-
 def phase_longrun(dev):
     """Phase 12 (see the module docstring). Returns the VGICP launches of
     its gated run and the kernel record of the captured launch."""
@@ -3142,7 +3296,7 @@ def phase_longrun(dev):
     from mr_slam_torch.geometry import se3
     from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
     from mr_slam_torch.ops import pointcloud as pcl
-    from mr_slam_torch.runtime import pipeline
+    from mr_slam_torch.runtime import pipeline, verify_graph
 
     t_phase = time.perf_counter()
     T, R = LONGRUN_FRAMES, LONGRUN_ROBOTS
@@ -3160,17 +3314,19 @@ def phase_longrun(dev):
     launch = hopper_vgicp.gn_accumulate
 
     def spy(*args, **kw):  # keep the first launch's inputs for the plain comparison
-        if not captured:
+        if not captured and not torch.cuda.is_current_stream_capturing():
             captured.update(args=[_clone(a) for a in args], kw={k: _clone(v) for k, v in kw.items()})
         return launch(*args, **kw)
 
+    verify_graph.clear()  # the run's first chunk of each key is then an eager one
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
     hopper_vgicp.gn_accumulate = spy
     try:
-        res, wall = bench_longrun.timed_run(scans, trajs, cfg, dev)
+        with VerifyRecord() as verified:
+            res, wall = bench_longrun.timed_run(scans, trajs, cfg, dev)
     finally:
         hopper_vgicp.gn_accumulate = launch
     launches = hopper_vgicp.launch_count()
@@ -3187,6 +3343,7 @@ def phase_longrun(dev):
         f"{launches} by batch {dict(sorted(by_batch.items()))}, terrain_stencil {stencil}")
     log(f"[longrun] keyframe ATE per robot (m): {ates}; keyframes {out['keyframes']}; loops "
         f"{out['loops']} ({inter} inter-robot); JAX reference {JAX_REF_LONGRUN}")
+    verified.check("phase 12 long run", cfg.loops.fitness_thresh)
 
     # bit-identity: robot 0's front-end again, against the gated run's
     origin0 = se3.index(trajs[0], 0).to(dev)
@@ -3223,10 +3380,11 @@ def phase_longrun(dev):
     record = check_vgicp(f"B={a[0].shape[0]} long-run verify (launch 0)", a[0], a[1], a[2],
                          captured["kw"])
 
-    # every launch of one verify_chunk of the run's loops against the plain version
+    # every launch of one eager verify chunk of the run's loops against the
+    # plain version; that chunk's host launches through both paths
     regions = []
     if inter:
-        verify = longrun_verify_chunk(res, cfg, dev)
+        eager, graphs = verify_chunk_paths(res, cfg, dev)
         calls = []
 
         def keep(*args, **kw):
@@ -3235,15 +3393,17 @@ def phase_longrun(dev):
 
         hopper_vgicp.gn_accumulate = keep
         try:
-            verify()
+            eager()
         finally:
             hopper_vgicp.gn_accumulate = launch
         chunk_err = check_chunk_launches("one verify_chunk (B = 8)", calls)
         record["max_abs_err"] = max(record["max_abs_err"], chunk_err)
         del calls
-        regions.append(("one verify_chunk (B = 8)", verify))
+        chunk_launch_counts("phase 12", eager, graphs)
+        regions += [("one verify chunk (B = 8), eager", eager),
+                    ("one verify chunk (B = 8), CUDA graphs", graphs)]
 
-    # where the device time goes: robot 0's first frames and that verify_chunk
+    # where the device time goes: robot 0's first frames and that verify chunk
     F = LONGRUN_PROFILE_FRAMES
     head = pcl.PointCloud(scans[0].xyz[:F], scans[0].mask[:F])
     regions.insert(0, (f"robot 0 front-end, {F} frames",

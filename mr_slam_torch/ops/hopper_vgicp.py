@@ -73,17 +73,37 @@ _N_OUT = 44  # H (36, both triangles), b (6), cost, inliers
 
 _launches = 0
 _by_batch: collections.Counter = collections.Counter()
+_recorded: collections.Counter = collections.Counter()
 
 
 def launch_count() -> int:
-    """Kernel launches (one per `gn_accumulate` call on a CUDA tensor)
-    since the last `reset_launch_count`."""
+    """Kernel launches (one per `gn_accumulate` call on a CUDA tensor
+    outside a CUDA-graph capture, plus those `add_launches` adds) since
+    the last `reset_launch_count`."""
     return _launches
 
 
 def launches_by_batch() -> dict[int, int]:
     """The same launches by batch size B."""
     return dict(_by_batch)
+
+
+def recorded_by_batch() -> dict[int, int]:
+    """Calls made while their stream was capturing a CUDA graph, by batch
+    size, since the process started: a capture records the launch and
+    runs nothing, so `launch_count` leaves them out."""
+    return dict(_recorded)
+
+
+def add_launches(by_batch: dict[int, int]) -> None:
+    """Count launches the wrapper did not make, by batch size: a CUDA
+    graph's replay runs the launches its capture recorded
+    (`runtime/frame_graph.Segments`). Negative counts take launches
+    back."""
+    global _launches
+    for B, n in by_batch.items():
+        _launches += n
+        _by_batch[B] += n
 
 
 def reset_launch_count() -> None:
@@ -313,13 +333,18 @@ def _launch(xyz, mask, table, leaf, slot, found, eps, max_corr2, center, pose, c
     )
     if index == torch.cuda.current_device():
         err = _lib().vgicp_accum_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+        capturing = torch.cuda.is_current_stream_capturing()
     else:
         with torch.cuda.device(index):
             err = _lib().vgicp_accum_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+            capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"vgicp_accum launch failed: CUDA error {err}")
-    _launches += 1
-    _by_batch[B] += 1
+    if capturing:  # recorded into a graph: each replay launches it
+        _recorded[B] += 1
+    else:
+        _launches += 1
+        _by_batch[B] += 1
     return out
 
 

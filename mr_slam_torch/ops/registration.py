@@ -11,11 +11,12 @@ transformed) dispatches to it, and every inner step of `_vgicp_direct1`
 launches it once on a CUDA tensor with the pose applied inside.
 
 Ported: `RegistrationResult`, `_gn_update`, `_uncenter`, `_select_best`,
-`_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B),
+`_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B; and
+`_vgicp_direct1_raw`, its GN steps without the projection and fitness),
 `vgicp` (batched; direct1 without source covariances runs the kernel,
 every other case the general matrix path), `point_to_plane_icp` (and
 `point_to_plane_icp_raw`, the same GN steps without the final SO(3)
-projection),
+projection and fitness),
 `loam_icp` (with `pooled_moments`, shared with the LIO update; the
 reference's `so3_hat` is `so3.hat`), `point_to_point_icp`,
 `_regularized_covs`, `gicp`, `fitness` and `register_pair`. The
@@ -39,7 +40,7 @@ class RegistrationResult(NamedTuple):
     pose: Pose                    # refined source->target transform
     num_inliers: torch.Tensor     # matched points at the final iterate
     error: torch.Tensor           # mean weighted residual cost
-    fitness: torch.Tensor         # PCL-style fitness (mean sq dist, capped)
+    fitness: torch.Tensor | None  # PCL-style fitness (mean sq dist, capped); None: *_raw
     converged: torch.Tensor       # final update norm below tolerance
 
 
@@ -209,7 +210,33 @@ def _vgicp_direct1(
     schedule: tuple | None = None,
 ) -> RegistrationResult:
     """Fused direct1 VGICP with correspondence caching, batched over a
-    leading B (the reference vmaps it over verify candidates).
+    leading B (the reference vmaps it over verify candidates):
+    `_vgicp_direct1_raw`, then `se3.normalize` of the pose, with the
+    full-cloud direct27 `fitness` at the unprojected pose, as the
+    reference scores it."""
+    res = _vgicp_direct1_raw(source, target, init, iters, max_corr_dist, damping, tol, inner,
+                             schedule)
+    return res._replace(pose=se3.normalize(res.pose),
+                        fitness=fitness(source, target, res.pose, max_range=1.0))
+
+
+def _vgicp_direct1_raw(
+    source: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+    inner: int = 10,
+    schedule: tuple | None = None,
+) -> RegistrationResult:
+    """`_vgicp_direct1`'s association rounds and GN steps: the pose's
+    rotation is not yet projected onto SO(3) (the caller runs
+    `se3.normalize`, whose SVD syncs the host on the card) and no
+    fitness is scored (`fitness` is None), so loop verification's CUDA
+    graphs (`runtime/verify_graph.py`) end here and skip the direct27
+    pass that nothing of theirs reads.
 
     `iters` GN steps run as ceil(iters/inner) association rounds
     (`voxel_grid.lookup_slots`) x `inner` gather-free GN steps against
@@ -245,11 +272,8 @@ def _vgicp_direct1(
             pose = se3.compose(se3.exp(_uncenter(dx_c, c)), pose)
             last_dx = torch.linalg.norm(dx_c, dim=-1)
             cost, n_in = cst / torch.clamp(n, min=1.0), n
-    fit = fitness(source, target, pose, max_range=1.0)
-    return RegistrationResult(
-        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
-        converged=last_dx < tol,
-    )
+    return RegistrationResult(pose=pose, num_inliers=n_in, error=cost, fitness=None,
+                              converged=last_dx < tol)
 
 
 def _planarity(C: torch.Tensor):
@@ -277,10 +301,12 @@ def point_to_plane_icp(
     nearest-single-cell fallback. Association rounds x `inner` GN steps
     against the cached planes; `schedule` as in `_vgicp_direct1`.
     Single cloud: source (N, 3), target (H, 16), init ().
-    `point_to_plane_icp_raw`, then `se3.normalize` of the pose."""
+    `point_to_plane_icp_raw`, then `se3.normalize` of the pose, with
+    `fitness` scored at the unprojected pose, as the reference scores it."""
     res = point_to_plane_icp_raw(source, target, init, iters, max_corr_dist, damping, tol,
                                  neighbors, inner, schedule)
-    return res._replace(pose=se3.normalize(res.pose))
+    return res._replace(pose=se3.normalize(res.pose),
+                        fitness=fitness(source, target, res.pose, max_range=1.0))
 
 
 def point_to_plane_icp_raw(
@@ -300,7 +326,8 @@ def point_to_plane_icp_raw(
     projection (`so3.project`, an SVD that syncs the host on the card)
     is left to the caller, so the odometry's CUDA graphs
     (`runtime/frame_graph.py`) end here and the projection runs between
-    them."""
+    them. No fitness is scored (`fitness` is None): the odometry does
+    not read it."""
     if schedule is None:
         schedule = _default_schedule(iters, inner)
     max_corr2 = _f32_square(max_corr_dist)
@@ -347,9 +374,8 @@ def point_to_plane_icp_raw(
             last_dx = torch.linalg.norm(dx)
             cost = torch.sum(r * r * w) / torch.clamp(torch.sum(w), min=1.0)
             n_in = torch.sum(w)
-    fit = fitness(source, target, pose, max_range=1.0)
     return RegistrationResult(
-        pose=pose, num_inliers=n_in, error=cost, fitness=fit, converged=last_dx < tol,
+        pose=pose, num_inliers=n_in, error=cost, fitness=None, converged=last_dx < tol,
     )
 
 

@@ -34,10 +34,15 @@ one memory pool and one stream. A replay launches the same kernels on
 the same inputs as the eager step, so the results are the eager card
 path's bit for bit. A failed capture raises: there is no eager fallback
 on the card. On the CPU the same segments run eagerly, in the same
-order, on the same buffers.
+order, on the same buffers. A capture launches nothing, so the VGICP
+kernel's wrapper does not count the launches it records; each replay
+adds them (`hopper_vgicp.add_launches`), and the counts stay the
+launches the card ran. Loop verification's chunks run on the same
+`Segments` (`runtime/verify_graph.py`).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import time
@@ -49,6 +54,7 @@ from ..frontend import keyframes as kf
 from ..frontend import odometry
 from ..geometry import so3
 from ..geometry.se3 import Pose
+from ..ops import hopper_vgicp
 from ..ops import pointcloud as pcl
 from ..ops import voxel_grid
 
@@ -116,15 +122,18 @@ class Segments:
             return fn(bufs)
         if name not in self._graphs:
             self._graphs[name] = self._capture(name, fn, bufs)
-        graph, out = self._graphs[name]
+        graph, out, launches = self._graphs[name]
         graph.replay()
         self.replays += 1
+        if launches:
+            hopper_vgicp.add_launches(launches)
         return out
 
     def _capture(self, name: str, fn: Callable, bufs: dict):
         t = time.perf_counter()
         if name not in self._eager:
             fn(_clone(bufs))
+        recorded = collections.Counter(hopper_vgicp.recorded_by_batch())
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
@@ -136,7 +145,7 @@ class Segments:
         graph.capture_end()
         self.captures += 1
         self.capture_s += time.perf_counter() - t
-        return graph, out
+        return graph, out, dict(collections.Counter(hopper_vgicp.recorded_by_batch()) - recorded)
 
     def pool_bytes(self) -> int:
         """Device memory the graphs' pool holds (its peak: a pool keeps

@@ -8,7 +8,9 @@ transfer). Verification is one batched call per CHUNK of candidates:
 merged-submap prep, three voxel-grid builds and coarse-to-fine VGICP
 over the whole chunk (the reference vmaps; here B is a tensor dimension,
 so one Hopper kernel launch covers the chunk at every GN step, and the
-two RING seeds per candidate make it 2 x CHUNK).
+two RING seeds per candidate make it 2 x CHUNK). The reference compiles
+the chunk into one program; here it replays as CUDA graphs
+(`runtime/verify_graph.py`), with `_verify_chunk_eager` as its oracle.
 """
 from __future__ import annotations
 
@@ -90,6 +92,88 @@ def _prep_side(store: kf.KeyframeStore, idx: torch.Tensor, cfg: SlamConfig):
     return pcl.voxel_downsample(local, L.verify_leaf, L.verify_capacity), pose
 
 
+# the two VGICP stages of a verify chunk (`registration._vgicp_direct1_raw`)
+COARSE = dict(iters=15, max_corr_dist=4.0)
+FINE = dict(iters=15, max_corr_dist=1.0)
+
+
+def _seed_sinograms(cfg: SlamConfig, same_robot: bool, descs_a: dict | None,
+                    descs_b: dict | None):
+    """(sinograms of store a, of store b) when the candidates register
+    from both SE(2) hypotheses (cross-robot RING / RING++ with
+    descriptors), else None."""
+    m = cfg.loops.method
+    if same_robot or m not in ("ring", "ringpp") or descs_a is None:
+        return None
+    key = "sino" if m == "ring" else "sino_pp"
+    return descs_a[key], descs_b[key]
+
+
+def _chunk_inputs(store_a: kf.KeyframeStore, store_b: kf.KeyframeStore, ia: torch.Tensor,
+                  ib: torch.Tensor, yaw: torch.Tensor, cfg: SlamConfig, same_robot: bool,
+                  sinos: tuple | None):
+    """Both sides' submaps, side a's coarse / fine / fitness grids and
+    the seeds, S-folded into the batch. Returns (side b's cloud, coarse
+    grid, fine grid, fitness grid, seed poses mapping b-frame points ->
+    a-frame), each with B * S rows, row b * S + s candidate b's seed s."""
+    L = cfg.loops
+    a_ds, pose_a = _prep_side(store_a, ia, cfg)
+    b_ds, pose_b = _prep_side(store_b, ib, cfg)
+
+    grid_leaf = max(0.5, L.verify_leaf)
+    table = max(1 << 14, 2 * L.verify_capacity)
+    coarse_g = voxel_grid.build(a_ds, 2.0, 1 << 13, min_points=3, regularize="plane")
+    fine_g = voxel_grid.build(a_ds, grid_leaf, table, min_points=3, regularize="plane")
+    fit_g = voxel_grid.build(a_ds, grid_leaf, table, min_points=1)
+
+    B = ia.shape[0]
+    if same_robot:
+        seed = se3.between(pose_a, pose_b)
+    elif sinos is not None:
+        if L.method == "ring":
+            sino_a, sino_b = sinos[0][ia], sinos[1][ib]
+        else:
+            sino_a = torch.mean(sinos[0][ia], dim=1)
+            sino_b = torch.mean(sinos[1][ib], dim=1)
+        A = sino_a.shape[-2]
+        shift = torch.round(yaw * A / np.pi).to(torch.int64)
+        yaws, xys, _ = ring.se2_hypotheses(sino_a, sino_b, shift)     # (B, 2), (B, 2, 2)
+        fwd = Pose(so3.yaw_rot(yaws), torch.cat([xys, torch.zeros_like(xys[..., :1])], dim=-1))
+        seed = se3.inverse(Pose(fwd.R.reshape(-1, 3, 3), fwd.t.reshape(-1, 3)))  # (B * 2,)
+    else:
+        seed = se3.inverse(Pose(so3.yaw_rot(yaw), torch.zeros_like(pose_a.t)))
+    S = seed.t.shape[0] // B
+    if S > 1:  # candidate-major: row b * S + s is candidate b's seed s
+        b_ds = pcl.PointCloud(b_ds.xyz.repeat_interleave(S, 0), b_ds.mask.repeat_interleave(S, 0))
+        coarse_g, fine_g, fit_g = (
+            voxel_grid.VoxelGrid(g.packed.repeat_interleave(S, 0), g.leaf)
+            for g in (coarse_g, fine_g, fit_g)
+        )
+    return b_ds, coarse_g, fine_g, fit_g, seed
+
+
+def _score(b_ds: pcl.PointCloud, fit_g: voxel_grid.VoxelGrid, pose: Pose, B: int,
+           cfg: SlamConfig):
+    """Fitness of the fine poses (B * S,) and each candidate's best seed.
+    Returns (rel Pose (B,) b_kf_frame <- a_kf_frame, fitness (B,))."""
+    # fitness is a mean: a 4x subsample scores it at a quarter of the
+    # direct27 gather cost; structure points only (z above
+    # fitness_z_min), since ground matches ground under any in-plane
+    # transform
+    sub_xyz = b_ds.xyz[:, ::4]
+    sub = pcl.PointCloud(sub_xyz, b_ds.mask[:, ::4] & (sub_xyz[..., 2] > cfg.loops.fitness_z_min))
+    fit = registration.fitness(sub, fit_g, pose)
+    S = fit.shape[0] // B
+    if S > 1:
+        fits = fit.reshape(B, S)
+        best = torch.argmin(fits, dim=1)       # the first of equal fitnesses
+        rows = torch.arange(B, device=best.device) * S + best
+        pose = se3.index(pose, rows)
+        fit = fits.gather(1, best[:, None])[:, 0]
+    # pose maps b-frame points into a-frame; the loop record wants b <- a
+    return se3.inverse(pose), fit
+
+
 def verify_chunk(
     store_a: kf.KeyframeStore,
     store_b: kf.KeyframeStore,
@@ -114,61 +198,39 @@ def verify_chunk(
     one VGICP kernel launch covers 2B registrations, and each
     candidate keeps the seed of lower fitness (the first on a tie).
 
+    Runs on `runtime/verify_graph`'s runner for the pair's shapes: CUDA
+    graph replays on the card, the same segments eagerly on the CPU;
+    equal bit for bit to `_verify_chunk_eager`.
+
     Returns (rel Pose (B,) mapping b_kf_frame <- a_kf_frame points,
     fitness (B,))."""
-    L = cfg.loops
-    a_ds, pose_a = _prep_side(store_a, ia, cfg)
-    b_ds, pose_b = _prep_side(store_b, ib, cfg)
+    from . import verify_graph
 
-    grid_leaf = max(0.5, L.verify_leaf)
-    table = max(1 << 14, 2 * L.verify_capacity)
-    coarse_g = voxel_grid.build(a_ds, 2.0, 1 << 13, min_points=3, regularize="plane")
-    fine_g = voxel_grid.build(a_ds, grid_leaf, table, min_points=3, regularize="plane")
-    fit_g = voxel_grid.build(a_ds, grid_leaf, table, min_points=1)
+    verify = verify_graph.verifier(store_a, store_b, cfg, same_robot, descs_a, descs_b,
+                                   batch=ia.shape[0])
+    return verify(ia, ib, yaw)
 
-    # seeds (B, S): init poses mapping b-frame points -> a-frame
-    B = ia.shape[0]
-    if same_robot:
-        seed = se3.between(pose_a, pose_b)
-    elif L.method in ("ring", "ringpp") and descs_a is not None:
-        if L.method == "ring":
-            sino_a, sino_b = descs_a["sino"][ia], descs_b["sino"][ib]
-        else:
-            sino_a = torch.mean(descs_a["sino_pp"][ia], dim=1)
-            sino_b = torch.mean(descs_b["sino_pp"][ib], dim=1)
-        A = sino_a.shape[-2]
-        shift = torch.round(yaw * A / np.pi).to(torch.int64)
-        yaws, xys, _ = ring.se2_hypotheses(sino_a, sino_b, shift)     # (B, 2), (B, 2, 2)
-        fwd = Pose(so3.yaw_rot(yaws), torch.cat([xys, torch.zeros_like(xys[..., :1])], dim=-1))
-        seed = se3.inverse(Pose(fwd.R.reshape(-1, 3, 3), fwd.t.reshape(-1, 3)))  # (B * 2,)
-    else:
-        seed = se3.inverse(Pose(so3.yaw_rot(yaw), torch.zeros_like(pose_a.t)))
-    S = seed.t.shape[0] // B
-    if S > 1:  # candidate-major: row b * S + s is candidate b's seed s
-        b_ds = pcl.PointCloud(b_ds.xyz.repeat_interleave(S, 0), b_ds.mask.repeat_interleave(S, 0))
-        coarse_g, fine_g, fit_g = (
-            voxel_grid.VoxelGrid(g.packed.repeat_interleave(S, 0), g.leaf)
-            for g in (coarse_g, fine_g, fit_g)
-        )
 
-    coarse = registration.vgicp(b_ds, coarse_g, seed, iters=15, max_corr_dist=4.0)
-    fine = registration.vgicp(b_ds, fine_g, coarse.pose, iters=15, max_corr_dist=1.0)
-    # fitness is a mean: a 4x subsample scores it at a quarter of the
-    # direct27 gather cost; structure points only (z above
-    # fitness_z_min), since ground matches ground under any in-plane
-    # transform
-    sub_xyz = b_ds.xyz[:, ::4]
-    sub = pcl.PointCloud(sub_xyz, b_ds.mask[:, ::4] & (sub_xyz[..., 2] > L.fitness_z_min))
-    fit = registration.fitness(sub, fit_g, fine.pose)
-    pose = fine.pose
-    if S > 1:
-        fits = fit.reshape(B, S)
-        best = torch.argmin(fits, dim=1)       # the first of equal fitnesses
-        rows = torch.arange(B, device=best.device) * S + best
-        pose = se3.index(pose, rows)
-        fit = fits.gather(1, best[:, None])[:, 0]
-    # pose maps b-frame points into a-frame; the loop record wants b <- a
-    return se3.inverse(pose), fit
+def _verify_chunk_eager(
+    store_a: kf.KeyframeStore,
+    store_b: kf.KeyframeStore,
+    ia: torch.Tensor,
+    ib: torch.Tensor,
+    yaw: torch.Tensor,
+    cfg: SlamConfig,
+    same_robot: bool,
+    descs_a: dict | None = None,
+    descs_b: dict | None = None,
+):
+    """`verify_chunk` op by op: the CUDA graphs' oracle. The GN stages
+    skip the full-cloud fitness that the reference's compiler drops
+    (`_vgicp_direct1_raw`, then `se3.normalize`)."""
+    b_ds, coarse_g, fine_g, fit_g, seed = _chunk_inputs(
+        store_a, store_b, ia, ib, yaw, cfg, same_robot,
+        _seed_sinograms(cfg, same_robot, descs_a, descs_b))
+    coarse = registration._vgicp_direct1_raw(b_ds, coarse_g, seed, **COARSE)
+    fine = registration._vgicp_direct1_raw(b_ds, fine_g, se3.normalize(coarse.pose), **FINE)
+    return _score(b_ds, fit_g, se3.normalize(fine.pose), ia.shape[0], cfg)
 
 
 def search_pair_loops(
@@ -227,7 +289,10 @@ def search_pair_loops(
     if not cand:
         return []
 
+    from . import verify_graph
+
     loops: list[dict] = []
+    verify = None
     for s in range(0, len(cand), CHUNK):
         chunk = cand[s : s + CHUNK]
         B = len(chunk)
@@ -237,10 +302,10 @@ def search_pair_loops(
         yw_arr = torch.as_tensor([c[2] for c in chunk] + [0.0] * pad,
                                  dtype=torch.float32, device=dev)
         with obs.tracer.span("loop.verify"):
-            rel, fit = verify_chunk(
-                store_a, store_b, ia_arr, ib_arr, yw_arr, cfg, same_robot,
-                descs_a=descs_a, descs_b=descs_b,
-            )
+            if verify is None:  # the pair's stores copied into the runner's buffers once
+                verify = verify_graph.verifier(store_a, store_b, cfg, same_robot, descs_a,
+                                               descs_b, batch=CHUNK)
+            rel, fit = verify(ia_arr, ib_arr, yw_arr)
             fit = fit.cpu().numpy()
         for k in range(B):
             metrics.inc("loops.verified")

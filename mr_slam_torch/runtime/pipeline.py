@@ -307,13 +307,14 @@ def _verify_loop(
     descs_b: dict | None = None,
 ):
     """Geometry check (`ICPCheck`) of one candidate loop: a batch of one
-    through `loopstage.verify_chunk`, so the chunked production path is
-    the one source of truth. Returns (accept, rel_pose (b_kf_frame <-
-    a_kf_frame), fitness)."""
+    through the chunk's stages (`loopstage._verify_chunk_eager`, eager on
+    every device: one candidate keeps no CUDA graph of its own), so the
+    chunked production path is the one source of truth. Returns (accept,
+    rel_pose (b_kf_frame <- a_kf_frame), fitness)."""
     from . import loopstage
 
     dev = store_a.xyz.device
-    rel, fit = loopstage.verify_chunk(
+    rel, fit = loopstage._verify_chunk_eager(
         store_a, store_b,
         torch.tensor([ia], device=dev), torch.tensor([ib], device=dev),
         torch.tensor([yaw_guess], dtype=torch.float32, device=dev), cfg, same_robot,

@@ -220,7 +220,8 @@ def test_lio_replayed_segment_equals_eager_loop(lio_sequence, replayed):
 
 
 def test_point_to_plane_icp_is_raw_then_projected(sequence):
-    """The public ICP is its raw GN steps, then `se3.normalize`."""
+    """The public ICP is its raw GN steps, then `se3.normalize`, with the
+    fitness scored at the raw pose; the raw steps score none."""
     traj, scans, _ = sequence
     pc = tpcl.voxel_downsample(tpcl.PointCloud(scans.xyz[0], scans.mask[0]), 0.4, 4096)
     grid = tvg.insert(tvg.empty(1.0, 1 << 14), pc)
@@ -229,7 +230,8 @@ def test_point_to_plane_icp_is_raw_then_projected(sequence):
     raw = treg.point_to_plane_icp_raw(pc, grid, init, iters=6, inner=2)
     res = treg.point_to_plane_icp(pc, grid, init, iters=6, inner=2)
     assert torch.equal(res.pose.R, tse3.normalize(raw.pose).R)
-    assert torch.equal(res.pose.t, raw.pose.t) and torch.equal(res.fitness, raw.fitness)
+    assert torch.equal(res.pose.t, raw.pose.t) and raw.fitness is None
+    assert torch.equal(res.fitness, treg.fitness(pc, grid, raw.pose))
     assert not torch.equal(raw.pose.R, res.pose.R)  # the projection moved the rotation
 
 

@@ -243,20 +243,25 @@ def test_every_cluster_size_matches_plain_on_card(setup, cuda_device, cluster, t
 
 @pytest.mark.gpu
 def test_one_launch_per_call_and_graph_capture_on_card(setup, cuda_device):
-    """One launch per call, and the call captured in a CUDA graph
-    replays to the eager result bit for bit."""
+    """One launch per call, counted where the kernel runs (a capture
+    records the launch, runs nothing and counts none), and the call
+    captured in a CUDA graph replays to the eager result bit for bit."""
     xyz, mask, table, kw = _card_case(setup, cuda_device, True, True, True)
+    hopper_vgicp.reset_launch_count()
     eager = hopper_vgicp.gn_accumulate(xyz, mask, table, **kw)
+    assert hopper_vgicp.launch_count() == 1
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         hopper_vgicp.gn_accumulate(xyz, mask, table, **kw)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    hopper_vgicp.reset_launch_count()
+    B = xyz.shape[0]
+    recorded = hopper_vgicp.recorded_by_batch().get(B, 0)
     with torch.cuda.graph(graph):
         captured = hopper_vgicp.gn_accumulate(xyz, mask, table, **kw)
-    assert hopper_vgicp.launch_count() == 1
+    assert hopper_vgicp.launch_count() == 2
+    assert hopper_vgicp.recorded_by_batch()[B] == recorded + 1
     graph.replay()
     torch.cuda.synchronize()
     for x, y in zip(eager, captured):
