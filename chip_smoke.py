@@ -94,12 +94,24 @@ Phases (each prints its own lines; any failure exits non-zero):
                64x1024 rays, 0.3 laps, under `mr_slam_torch/build/`;
                `run_session(device=cuda)`: 48 frames, ATE < 0.5 m).
                The stream's verify chunks are held to the eager chunk
-               as in phase 5 (`VerifyRecord`).
-               Prints add_frame frames/s per robot, the online span
-               totals, loop stages, peak device memory, the host syncs
-               per frame and their sites (`count_syncs`), the
-               checkpoint's size and save / load walls, and the
-               real-format walls.
+               as in phase 5 (`VerifyRecord`). Every `add_frame` goes
+               through its robot's runner (`runtime/online._RobotGraphs`:
+               the front-end step, the keyframe gate and the GEM tick
+               replayed from CUDA graphs from a runner's second frame
+               on); the same stream through the eager tick
+               (`OnlineSlam._add_frame_eager`, `eager_session`) must give
+               bit-equal optimized poses, keyframe stores, accepted
+               loops, TF buffer and GEM submaps (`session_oracle`), and a
+               plain frame through the graphs fewer than a tenth of the
+               eager tick's host launch calls.
+               Prints add_frame frames/s per robot of both sessions, the
+               runners' captures, capture seconds, replays, pool MiB and
+               gate recaptures, the online span totals, loop stages, peak
+               device memory, the host syncs per frame and their sites
+               (`count_syncs`), the host launch calls, device kernels and
+               syncs of PLAIN_FRAMES plain frames of both sessions
+               (`feed_frames`), the checkpoint's size and save / load
+               walls, and the real-format walls.
 
   8. desc    — place recognition on the card: every `LoopCfg.method`
                (scancontext, ring, ringpp, disco, m2dp, fasthist) through
@@ -143,10 +155,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                scan2map `pipeline.run` with per-point times on the
                start-sheared scans (odometry ATE band, and below the same
                run without times); an `OnlineSlam` session of LIO robots fed
-               by `synthetic_bag(with_imu=True)` through `replay` (ATE
+               by `synthetic_bag(with_imu=True)` through its runners (ATE
                band against the reference session, <= LIO_SYNC_BUDGET
                host syncs on a plain LIO frame, a midpoint save / load
-               finishing bit-identically); A-LOAM `feature_odometry.run`
+               finishing bit-identically, the eager tick's session over
+               the first half bit-equal to the runner session saved
+               there, frames/s and a plain frame's counts of both as in
+               phase 7); A-LOAM `feature_odometry.run`
                over range images of robot 0's road (final error < 0.5 m,
                ATE band).
  10. closure — the functions that close the single-process port, on the
@@ -262,6 +277,7 @@ power limit as `nvidia-smi` prints them, and `{"ok": true, "device":
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import subprocess
@@ -1104,13 +1120,21 @@ def online_ate(store, opt_t, node_ids, traj, r):
 
 
 def _same_result(a, b) -> bool:
-    """Optimized poses, keyframe counts and accepted loops bit-identical."""
+    """Optimized poses, keyframe stores (clouds, masks, poses, stamps,
+    counts) and accepted loops bit-identical."""
     import torch
 
     if not (torch.equal(a.opt_poses.R, b.opt_poses.R) and torch.equal(a.opt_poses.t, b.opt_poses.t)):
         return False
-    if [int(x.store.count) for x in a.robots] != [int(x.store.count) for x in b.robots]:
+    if len(a.robots) != len(b.robots):
         return False
+    for x, y in zip(a.robots, b.robots):
+        if not all(torch.equal(getattr(x.store, f), getattr(y.store, f))
+                   for f in ("xyz", "mask", "stamps", "count")):
+            return False
+        if not (torch.equal(x.store.poses.R, y.store.poses.R)
+                and torch.equal(x.store.poses.t, y.store.poses.t)):
+            return False
     if not np.array_equal(a.node_of, b.node_of) or len(a.loops) != len(b.loops):
         return False
     keys = ("robot_a", "kf_a", "robot_b", "kf_b")
@@ -1119,6 +1143,39 @@ def _same_result(a, b) -> bool:
         and torch.equal(la["rel"].t, lb["rel"].t)
         for la, lb in zip(a.loops, b.loops)
     )
+
+
+def eager_session(cfg, dev, **kw):
+    """An `OnlineSlam` whose `add_frame` is the eager tick
+    (`OnlineSlam._add_frame_eager`): the oracle of the runners' graphs."""
+    from mr_slam_torch.runtime import online
+
+    class EagerSlam(online.OnlineSlam):
+        add_frame = online.OnlineSlam._add_frame_eager
+
+    return EagerSlam(cfg, device=dev, **kw)
+
+
+def same_sessions(got, want, got_res, want_res) -> dict:
+    """Two sessions over one stream: their results (`_same_result`), TF
+    buffers (every stamped transform) and GEM submaps bit-identical."""
+    import torch
+
+    def tf_equal(a, b):
+        return a._edges.keys() == b._edges.keys() and all(
+            a._edges[k][0] == b._edges[k][0]
+            and all(np.array_equal(x, y) for x, y in zip(a._edges[k][1], b._edges[k][1]))
+            and all(np.array_equal(x, y) for x, y in zip(a._edges[k][2], b._edges[k][2]))
+            for k in a._edges)
+
+    def gem_equal(a, b):
+        fa, fb = a.get("gem_flushed", []), b.get("gem_flushed", [])
+        return len(fa) == len(fb) and all(
+            ka == kb and torch.equal(ca.xyz, cb.xyz) and torch.equal(ca.mask, cb.mask)
+            for (ka, ca), (kb, cb) in zip(fa, fb))
+
+    return dict(result=_same_result(got_res, want_res), tf=tf_equal(got.tf, want.tf),
+                gem=all(gem_equal(got.robots[r], want.robots[r]) for r in want.robots))
 
 
 def count_syncs(fn):
@@ -1142,27 +1199,158 @@ def count_syncs(fn):
         if "synchroniz" in str(w.message))
 
 
-def count_frame_syncs(sess, frames):
-    """Feed `frames` to `sess` one add_frame at a time, counting the
-    host syncs of each (`count_syncs`). Returns [(sites, busy)] per
-    frame, `busy` when the frame added a keyframe or fired a loop stage,
-    TF or the merged map."""
+def session_spans() -> str:
+    """The online spans' totals and counts (`obs.tracer`)."""
     from mr_slam_torch.runtime import observability as obs
 
-    def state():
-        return (sum(sess.kf_counts.values()), len(sess._pending_kf),
-                obs.metrics.counters.get("tf.publishes", 0),
-                obs.metrics.counters.get("compose.runs", 0))
+    spans = obs.tracer.report()
+    return ", ".join(f"{k} {spans[k]['total_s']:.3f} / {spans[k]['count']}"
+                     for k in ("online.frontend", "online.gem", "loop.retrieve", "loop.verify",
+                               "online.pcm", "online.solve", "online.compose") if k in spans)
+
+
+def session_busy(sess):
+    """What a frame that is not plain changes: keyframes, pending
+    keyframes, TF publishes, merged-map runs."""
+    from mr_slam_torch.runtime import observability as obs
+
+    return (sum(sess.kf_counts.values()), len(sess._pending_kf),
+            obs.metrics.counters.get("tf.publishes", 0),
+            obs.metrics.counters.get("compose.runs", 0))
+
+
+def feed_frames(sess, frames, profiled=(), syncs=False):
+    """Feed `frames` to `sess` one add_frame at a time (robots registered
+    on first sight, as `replay.replay` does). Returns a dict a frame:
+    its robot, host seconds, `busy` when it added a keyframe or fired a
+    loop stage, TF or the merged map; with `syncs` its host syncs by site
+    (`count_syncs`); for the frame indices in `profiled` also the device
+    kernels and host launch calls that `torch.profiler` saw (the device
+    synchronized at both edges; their seconds, and their spans in
+    `obs.tracer`, are left out)."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mr_slam_torch.runtime import observability as obs
 
     out = []
-    for f in frames:
+    for i, f in enumerate(frames):
         if f.robot not in sess.robots:
             sess.register_robot(f.robot, f.origin)
-        before = state()
-        sites = count_syncs(lambda: sess.add_frame(f.robot, f.scan, stamp=f.stamp, times=f.times,
-                                                   imu=f.imu))
-        out.append((sites, before != state()))
+        before = session_busy(sess)
+        rec = dict(robot=f.robot)
+
+        def add():
+            t = time.perf_counter()
+            sess.add_frame(f.robot, f.scan, stamp=f.stamp, times=f.times, imu=f.imu)
+            rec["s"] = time.perf_counter() - t
+
+        if i in profiled:
+            spans = copy.deepcopy(obs.tracer.stats)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                rec["syncs"] = count_syncs(add)
+                torch.cuda.synchronize()
+            obs.tracer.stats = spans
+            ka = prof.key_averages()
+            rec["kernels"] = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
+            rec["launch_calls"] = sum(e.count for e in ka if "LaunchKernel" in e.key
+                                      or "GraphLaunch" in e.key)
+        elif syncs:
+            rec["syncs"] = count_syncs(add)
+        else:
+            add()
+        rec["busy"] = before != session_busy(sess)
+        out.append(rec)
     return out
+
+
+def plain_counts(records):
+    """Mean device kernels, host launch calls and host syncs of the
+    profiled plain frames of `feed_frames` records, and the syncs'
+    sites."""
+    plain = [r for r in records if "kernels" in r and not r["busy"]]
+    n = max(len(plain), 1)
+    return dict(frames=len(plain), kernels=sum(r["kernels"] for r in plain) / n,
+                launch_calls=sum(r["launch_calls"] for r in plain) / n,
+                syncs=sum(sum(r["syncs"].values()) for r in plain) / n,
+                sites=dict(sum((r["syncs"] for r in plain), collections.Counter())))
+
+
+def fps_by_robot(records, n_robots):
+    """Frames/s a robot over the records' unprofiled frames (host seconds
+    of add_frame, summed)."""
+    out = []
+    for r in range(n_robots):
+        mine = [x["s"] for x in records if x["robot"] == r and "kernels" not in x]
+        out.append(len(mine) / sum(mine))
+    return out
+
+
+def log_runners(tag, sess):
+    """Each robot runner's frames, captures, capture seconds, replays,
+    graph-pool MiB and gate recaptures (`OnlineSlam.graph_stats`)."""
+    stats = sess.graph_stats()
+    for r, s in sorted(stats.items()):
+        log(f"[{tag}] robot {r} runner: {s['frames']} frames, {s['captures']} captures in "
+            f"{s['capture_s']:.3f} s, {s['replays']} replays, graph pool "
+            f"{s['pool_bytes'] / 2**20:.1f} MiB, gate recaptures {s['gate_recaptures']}")
+    return stats
+
+
+def session_oracle(tag, graphs, graph_res, frames, plain_idx, graph_plain):
+    """The eager oracle session (the config, device and GEM switch of the
+    runner session `graphs`) over the stream `graphs` took (`graph_res`
+    its result): bit-equal results, stores, loops, TF and GEM submaps
+    (`same_sessions`), or AssertionError. The eager session's frames/s
+    per robot over the frames it does not profile; its plain frames
+    `plain_idx` profiled. Prints both sessions' plain-frame counts
+    (`graph_plain`, the runners' own) and returns (eager frames/s, eager
+    counts)."""
+    import torch
+
+    from mr_slam_torch.runtime import observability as obs
+
+    eager = eager_session(graphs.cfg, graphs.device, enable_gem=graphs.enable_gem)
+    obs.tracer.stats.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    recs = feed_frames(eager, frames, profiled=set(plain_idx))
+    want = eager.result()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    same = same_sessions(graphs, eager, graph_res, want)
+    counts = plain_counts(recs)
+    fps = fps_by_robot(recs, len(graphs.robots))
+    log(f"[{tag}] eager oracle session (`_add_frame_eager`): replay + result() {wall:.3f} s; "
+        f"add_frame frames/s per robot {[round(x, 2) for x in fps]} (host seconds of the "
+        f"{len(frames) - len(plain_idx)} unprofiled frames); the runner session bit-equal to it: "
+        f"{same}; spans of the unprofiled frames (total s / count): {session_spans()}")
+    log(f"[{tag}] a plain frame (no keyframe, no cadence; frames {list(plain_idx)} of the stream, "
+        f"{counts['frames']} of them, torch.profiler): host launch calls eager "
+        f"{counts['launch_calls']:.1f}, graphs {graph_plain['launch_calls']:.1f}; device kernels "
+        f"eager {counts['kernels']:.1f}, graphs {graph_plain['kernels']:.1f}; host syncs eager "
+        f"{counts['syncs']:.1f}, graphs {graph_plain['syncs']:.1f}; graph sites "
+        f"{graph_plain['sites']}")
+    del eager
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: the runner session differs from the eager tick: {same}")
+    if not (counts["frames"] and graph_plain["frames"]):
+        raise AssertionError(f"{tag}: no plain frame was profiled")
+    if not graph_plain["launch_calls"] * 10 < counts["launch_calls"]:
+        raise AssertionError(f"{tag}: a plain frame through the graphs makes "
+                             f"{graph_plain['launch_calls']} launch calls, eager "
+                             f"{counts['launch_calls']}")
+    return fps, counts
+
+
+# the plain frames a session's counts profile: PLAIN_FRAMES frames that
+# add no keyframe and fire no cadence, from frame PLAIN_FROM of the
+# stream on (every robot's runner has captured its segments by then)
+PLAIN_FROM, PLAIN_FRAMES = 27, 3
 
 
 # --------------------------------------------------------------------------
@@ -1342,10 +1530,14 @@ def phase_online(dev, trajs, host_scans, cfg):
     stages = [0]
     add_frame, loop_stage = sess.add_frame, sess.run_loop_stage
 
+    busy = []  # per frame of the stream: not a plain frame
+
     def timed_add(robot, scan, **kw):
+        before = session_busy(sess)
         t = time.perf_counter()
         pose = add_frame(robot, scan, **kw)
         add_s[robot] += time.perf_counter() - t
+        busy.append(before != session_busy(sess))
         return pose
 
     def counted_stage():
@@ -1378,11 +1570,7 @@ def phase_online(dev, trajs, host_scans, cfg):
         n_r = sum(f.robot == r for f in frames)
         log(f"[online] robot {r}: add_frame {add_s[r]:.3f} s = {n_r / add_s[r]:.1f} frames/s, "
             f"{sess.kf_counts[r]} keyframes")
-    log("[online] spans (total s / count): " + ", ".join(
-        f"{k} {spans[k]['total_s']:.3f} / {spans[k]['count']}"
-        for k in ("online.frontend", "online.gem", "loop.retrieve", "loop.verify", "online.pcm",
-                  "online.solve", "online.compose")
-        if k in spans))
+    log("[online] spans (total s / count): " + session_spans())
     inter = [l for l in res.loops if l["robot_a"] != l["robot_b"]]
     log(f"[online] loops: candidates {counters.get('loops.candidates', 0):.0f}, verified "
         f"{counters.get('loops.verified', 0):.0f}, accepted after PCM {len(res.loops)} "
@@ -1391,6 +1579,9 @@ def phase_online(dev, trajs, host_scans, cfg):
         f"{counters.get('compose.runs', 0):.0f}")
 
     verified.check("phase 7 online session", ocfg.loops.fitness_thresh)
+    runners = log_runners("online", sess)
+    if any(r["captures"] < 1 or r["replays"] < 1 for r in runners.values()):
+        raise AssertionError(f"a robot's tick replayed no graph: {runners}")
 
     # ---- 2. the session's checks --------------------------------------
     opt_t = res.opt_poses.t.cpu().numpy()
@@ -1443,16 +1634,19 @@ def phase_online(dev, trajs, host_scans, cfg):
     st, _, _ = check_stencil(f"online global_elevation grid {MAP_SIZE}x{MAP_SIZE}", emap.height,
                              emap.valid, emap.resolution)
 
-    # ---- 4. resume (its first half also counts the host syncs) ----------
+    # ---- 4. resume (its first half also counts the host syncs and, on
+    # PLAIN_FRAMES plain frames, the launches) ----------------------------
     half = len(frames) // 2
+    plain_idx = [i for i in range(PLAIN_FROM, half) if not busy[i]][:PLAIN_FRAMES]
     first = online.OnlineSlam(ocfg, enable_gem=True, device=dev)
-    syncs = count_frame_syncs(first, frames[:half])
-    plain = sorted(sum(s.values()) for s, busy in syncs if not busy)
-    every = sorted(sum(s.values()) for s, _ in syncs)
+    recs = feed_frames(first, frames[:half], profiled=set(plain_idx), syncs=True)
+    graph_plain = plain_counts(recs)
+    plain = sorted(sum(r["syncs"].values()) for r in recs if not r["busy"])
+    every = sorted(sum(r["syncs"].values()) for r in recs)
     log(f"[online] host syncs per add_frame (torch.cuda sync debug mode, first {half} frames): "
         f"{plain[:1] + plain[-1:]} (min, max) on the {len(plain)} frames that add no keyframe "
         f"and fire no cadence; {every[:1] + every[-1:]} over all frames, {sum(every)} in all")
-    sites = sum((s for s, busy in syncs if not busy), collections.Counter())
+    sites = sum((r["syncs"] for r in recs if not r["busy"]), collections.Counter())
     log(f"[online] their sites on those frames (calls): {dict(sites.most_common())}")
     path = os.path.join(out_dir, "session.npz")
     torch.cuda.synchronize()
@@ -1467,9 +1661,17 @@ def phase_online(dev, trajs, host_scans, cfg):
     same = _same_result(resumed.result(), res)
     log(f"[online] checkpoint at frame {half} of {len(frames)}: {os.path.getsize(path) / 2**20:.2f} "
         f"MiB, save_session {t_save:.3f} s, load_session {t_load:.3f} s; resumed session "
-        f"bit-identical to the uninterrupted one: {same}")
+        f"(fresh runners from the restored state) bit-identical to the uninterrupted one: {same}")
     if not same:
         raise AssertionError("the resumed session differs from the uninterrupted one")
+    del first, resumed
+
+    # ---- 4b. the eager oracle ------------------------------------------
+    eager_fps, eager_plain = session_oracle("online", sess, res, frames, plain_idx, graph_plain)
+    graph_fps = [sum(f.robot == r for f in frames) / add_s[r] for r in range(n_robots)]
+    del sess, add_frame, loop_stage, timed_add, counted_stage
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- 5. the real-format chain ----------------------------------------
     root = os.path.join(out_dir, "realformat")
@@ -1487,6 +1689,8 @@ def phase_online(dev, trajs, host_scans, cfg):
         raise AssertionError(f"run_session read {out['frames']} frames")
     if not out["ate_rmse_m"] < 0.5:
         raise AssertionError(f"real-format ATE {out['ate_rmse_m']} m >= 0.5 m")
+    log(f"[online] add_frame frames/s per robot: runners {[round(x, 2) for x in graph_fps]} "
+        f"(every frame, captures included), eager tick {[round(x, 2) for x in eager_fps]}")
     return vgicp_launches, stream_stencil + map_stencil, st["max_abs_err"]
 
 
@@ -2435,9 +2639,11 @@ def s2m_compensation(dev, sc, cfg):
 
 def lio_session(dev, sc, cfg):
     """Every robot on LIO in an `OnlineSlam` session (GEM off, phase 7's
-    cadences) fed by `synthetic_bag(with_imu=True)` through `replay`:
-    ATE band against the reference session, host syncs per LIO frame,
-    and a save / load at the midpoint finishing bit-identically."""
+    cadences) fed by `synthetic_bag(with_imu=True)` through its runners:
+    ATE band against the reference session, host syncs per LIO frame, a
+    save / load at the midpoint finishing bit-identically, and the eager
+    oracle session over the stream's first half bit-equal to the runner
+    session saved there (`session_oracle`)."""
     import os
 
     import torch
@@ -2445,6 +2651,7 @@ def lio_session(dev, sc, cfg):
     from mr_slam_torch.datasets import replay, synthetic
     from mr_slam_torch.ops import hopper_vgicp
     from mr_slam_torch.runtime import checkpoint, online
+    from mr_slam_torch.runtime import observability as obs
 
     scfg = online_config(lio_config(cfg))
     t = time.perf_counter()
@@ -2453,24 +2660,32 @@ def lio_session(dev, sc, cfg):
                                   imu_sub=LIO_IMU_SUB)
     t_bag = time.perf_counter() - t
     hopper_vgicp.reset_launch_count()
+    obs.tracer.stats.clear()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     whole = online.OnlineSlam(scfg, device=dev)
-    replay.replay(frames, whole)
+    recs = feed_frames(whole, frames)
     want = whole.result()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = hopper_vgicp.launch_count()
+    log(f"[lio-online] spans (total s / count): {session_spans()}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    graph_fps = fps_by_robot(recs, N_ROBOTS)
     opt_t = want.opt_poses.t.cpu().numpy()
     ates = [online_ate((want.robots[r].store.stamps.cpu().numpy(), int(want.robots[r].store.count)),
                        opt_t, want.node_of[r], sc["trajs"][r], r) for r in range(N_ROBOTS)]
     inter = [l for l in want.loops if l["robot_a"] != l["robot_b"]]
+    runners = log_runners("lio-online", whole)
     half = len(frames) // 2
+    plain_idx = [i for i in range(PLAIN_FROM, half) if not recs[i]["busy"]][:PLAIN_FRAMES]
     first = online.OnlineSlam(scfg, device=dev)
-    syncs = count_frame_syncs(first, frames[:half])
-    lio_frames = [(s, busy) for (s, busy), f in zip(syncs, frames[:half]) if f.imu is not None]
-    plain = sorted(sum(s.values()) for s, busy in lio_frames if not busy)
-    sites = sum((s for s, busy in lio_frames if not busy), collections.Counter())
+    syncs = feed_frames(first, frames[:half], profiled=set(plain_idx), syncs=True)
+    graph_plain = plain_counts(syncs)
+    lio_frames = [r for r, f in zip(syncs, frames[:half]) if f.imu is not None]
+    plain = sorted(sum(r["syncs"].values()) for r in lio_frames if not r["busy"])
+    sites = sum((r["syncs"] for r in lio_frames if not r["busy"]), collections.Counter())
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mr_slam_torch", "build",
                         "online", "lio_session.npz")
     checkpoint.save_session(first, path)
@@ -2479,7 +2694,8 @@ def lio_session(dev, sc, cfg):
     same = _same_result(resumed.result(), want)
     log(f"[lio-online] synthetic_bag(with_imu=True) of {len(frames)} frames at {RINGS}x{AZIMUTH} "
         f"in {t_bag:.1f} s; session (every robot LIO, GEM off) replay + result() {wall:.3f} s = "
-        f"{len(frames) / wall:.2f} frames/s; vgicp_accum launches {launches}; keyframes "
+        f"{len(frames) / wall:.2f} frames/s, add_frame frames/s per robot "
+        f"{[round(x, 2) for x in graph_fps]}; vgicp_accum launches {launches}; keyframes "
         f"{[int(r.store.count) for r in want.robots]}; loops {len(want.loops)} ({len(inter)} "
         f"inter-robot); keyframe ATE per robot (m) {[round(a, 4) for a in ates]}; JAX reference "
         f"session {JAX_REF_LIO_ONLINE_ATE}")
@@ -2494,7 +2710,18 @@ def lio_session(dev, sc, cfg):
         raise AssertionError(f"a LIO frame makes {plain[-1:]} host syncs, budget {LIO_SYNC_BUDGET}")
     if not same:
         raise AssertionError("the resumed LIO session differs from the uninterrupted one")
-    return launches, dict(ates=ates, wall=wall, syncs=plain[-1])
+    if any(r["captures"] < 1 or r["replays"] < 1 for r in runners.values()):
+        raise AssertionError(f"a LIO robot's tick replayed no graph: {runners}")
+    del whole, resumed
+    # the eager oracle over the first half (against the session saved
+    # there), for the script's time limit; phase 7's runs the whole stream
+    eager_fps, eager_plain = session_oracle("lio-online", first, first.result(), frames[:half],
+                                            plain_idx, graph_plain)
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(ates=ates, wall=wall, syncs=plain[-1], fps=graph_fps,
+                          eager_fps=eager_fps, plain=graph_plain, eager_plain=eager_plain)
 
 
 def feature_scenario():

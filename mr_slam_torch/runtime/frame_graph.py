@@ -1,15 +1,17 @@
 """The front-ends' frame loops replayed as CUDA graphs: the port's
 counterpart of the reference's `pipeline._frontend_fused` and
 `_frontend_fused_lio` (`mr_slam_tpu/runtime/pipeline.py:80-186`), which
-run a robot's whole front-end as one compiled `lax.scan`.
+run a robot's whole front-end as one compiled `lax.scan`, and of the
+jitted `odometry.step` / `lio.step` / `store.gate_and_add` that
+`OnlineSlam.add_frame` ticks (`mr_slam_tpu/runtime/online.py:191-314`).
 
-A frame's state lives in static buffers (the scan, its mask and point
-times, the IMU packet, the stamp, the poses, both maps' packed tables,
-the keyframe store). The work of a frame is cut into segments, each a
-function of those buffers that writes its new state back into them
-with `copy_`:
+A runner (`Scan2Map`, `Lio`) holds a robot's frame state in static
+buffers (the scan, its mask and point times, the IMU packet, the stamp,
+the poses, both maps' packed tables, the keyframe store) and cuts the
+work of a frame into segments, each a function of those buffers that
+writes its new state back into them with `copy_`:
 
-  scan2map (`scan2map`), the stages of `odometry.step`:
+  scan2map (`Scan2Map.step`), the stages of `odometry.step`:
     coarse         prediction, motion compensation, downsample, coarse ICP
                    [so3.project, eager: its torch.linalg.svd syncs the host]
     fine           fine ICP
@@ -18,27 +20,38 @@ with `copy_`:
     decay          fine-map trim                (its cadence, not when shed)
     coarse_insert  coarse insert + trim         (its cadence, not when shed)
     commit         pose <- new pose, the keyframe gate
-  LIO (`lio`): frame i >= 1 is one segment, `lio.step` and the keyframe
-    gate (no projection, no host sync); the filter's first step (no
-    update) and the later ones are two segments.
+  LIO (`Lio.step`): a frame with an IMU packet is one segment, `lio.step`
+    and the keyframe gate (no projection, no host sync); the filter's
+    first step (no update) and the later ones are two segments. A frame
+    without a packet (a session's first) only gates the current pose.
 
-Frame 0 runs eagerly. On a CUDA device each segment is captured into a
-CUDA graph the first time it runs from frame 1 on, and replayed from
-then on: every frame i >= 1 is graph replays, the projections between
-them and the copies of the frame's inputs and outputs. Before its
-capture a segment that has not run eagerly in this call runs once
-eagerly on copies of the buffers (results dropped): that run makes the
-device constants (`devconst`) and the cuBLAS / CUB workspaces of the
-runner's stream, which a capture cannot. All of a call's graphs share
-one memory pool and one stream. A replay launches the same kernels on
-the same inputs as the eager step, so the results are the eager card
-path's bit for bit. A failed capture raises: there is no eager fallback
-on the card. On the CPU the same segments run eagerly, in the same
-order, on the same buffers. A capture launches nothing, so the VGICP
-kernel's wrapper does not count the launches it records; each replay
-adds them (`hopper_vgicp.add_launches`), and the counts stay the
-launches the card ran. Loop verification's chunks run on the same
-`Segments` (`runtime/verify_graph.py`).
+The keyframe gate is a parameter of the runner: `StoreGate`
+(`kf.maybe_add` on a `KeyframeStore`, the batch path) or `RowGate`
+(`store.gate_and_add` on one row of a `MultiRobotStore`, the session).
+The frame index of the cadences is the state's own `frame`, so a runner
+built from a restored state starts mid-stream.
+
+A runner's first step runs eagerly. On a CUDA device each segment is
+captured into a CUDA graph the first time it runs after that, and
+replayed from then on: every later step is graph replays, the
+projections between them and the copies of the frame's inputs. Before
+its capture a segment that has not run eagerly runs once eagerly on
+copies of the buffers (results dropped): that run makes the device
+constants (`devconst`) and the cuBLAS / CUB workspaces of the runner's
+stream, which a capture cannot. All of a runner's graphs share one
+memory pool and one stream. A replay launches the same kernels on the
+same inputs as the eager step, so the results are the eager card path's
+bit for bit. A failed capture raises: there is no eager fallback on the
+card. On the CPU the same segments run eagerly, in the same order, on
+the same buffers. A capture launches nothing, so the VGICP kernel's
+wrapper does not count the launches it records; each replay adds them
+(`hopper_vgicp.add_launches`), and the counts stay the launches the card
+ran. Loop verification's chunks run on the same `Segments`
+(`runtime/verify_graph.py`).
+
+`scan2map` and `lio` run a stacked sequence through one runner (the
+batch path, `pipeline.run_frontend`); `OnlineSlam.add_frame` keeps one
+runner a robot and steps it a frame at a time.
 """
 from __future__ import annotations
 
@@ -57,6 +70,7 @@ from ..geometry.se3 import Pose
 from ..ops import hopper_vgicp
 from ..ops import pointcloud as pcl
 from ..ops import voxel_grid
+from ..parallel import store as mstore_lib
 
 
 def _clone(x):
@@ -111,7 +125,7 @@ class Segments:
         caller.wait_stream(self.stream)
 
     def eager(self, name: str, fn: Callable, bufs: dict) -> dict:
-        """Run the segment eagerly on every device (frame 0)."""
+        """Run the segment eagerly on every device (a runner's first step)."""
         self._eager.add(name)
         return fn(bufs)
 
@@ -128,6 +142,15 @@ class Segments:
         if launches:
             hopper_vgicp.add_launches(launches)
         return out
+
+    def drop(self, name: str) -> bool:
+        """Forget the segment's graph (its buffers were rebound): the next
+        `run` captures it anew. Returns whether there was one."""
+        if name not in self._graphs:
+            return False
+        self.stream.synchronize()  # its last replay has run
+        del self._graphs[name]
+        return True
 
     def _capture(self, name: str, fn: Callable, bufs: dict):
         t = time.perf_counter()
@@ -178,6 +201,11 @@ class Run(NamedTuple):
     stats: dict                      # captures, replays, capture_s, pool_bytes
 
 
+# --------------------------------------------------------------------------
+# keyframe gates
+# --------------------------------------------------------------------------
+
+
 def _store_bufs(store: kf.KeyframeStore) -> dict:
     return dict(kf_xyz=store.xyz, kf_mask=store.mask, kf_R=store.poses.R, kf_t=store.poses.t,
                 kf_stamps=store.stamps, kf_count=store.count.clone(),
@@ -190,23 +218,314 @@ def _store(b: dict) -> kf.KeyframeStore:
                             last_pose=Pose(b["kf_last_R"], b["kf_last_t"]))
 
 
-def _gate(b: dict, pose: Pose, gate: dict) -> torch.Tensor:
-    """`kf.maybe_add` of the frame's scan on the store's buffers (it
-    writes the slot in place; the count and gate anchor are copied)."""
-    store, add = kf.maybe_add(_store(b), pcl.PointCloud(b["xyz"], b["mask"]), pose, b["stamp"],
-                              **gate)
-    b["kf_count"].copy_(store.count)
-    b["kf_last_R"].copy_(store.last_pose.R)
-    b["kf_last_t"].copy_(store.last_pose.t)
-    return add
+class StoreGate:
+    """`kf.maybe_add(store, scan, pose, stamp, **gate)` on a
+    `KeyframeStore` whose tensors become the runner's buffers (it writes
+    the slot in place; the count and gate anchor are copied)."""
+
+    def __init__(self, store: kf.KeyframeStore, **gate):
+        self.gate = gate
+        self._init = store
+
+    def bufs(self) -> dict:
+        return _store_bufs(self._init)
+
+    def rebind(self, b: dict) -> bool:
+        return False
+
+    def __call__(self, b: dict, pose: Pose) -> dict:
+        store, add = kf.maybe_add(_store(b), pcl.PointCloud(b["xyz"], b["mask"]), pose, b["stamp"],
+                                  **self.gate)
+        b["kf_count"].copy_(store.count)
+        b["kf_last_R"].copy_(store.last_pose.R)
+        b["kf_last_t"].copy_(store.last_pose.t)
+        return dict(added=add)
+
+    def store(self, b: dict) -> kf.KeyframeStore:
+        return _store(b)
 
 
-def _load_frame(b: dict, scans: pcl.PointCloud, i: int, times: torch.Tensor | None) -> None:
-    b["xyz"].copy_(scans.xyz[i])
-    b["mask"].copy_(scans.mask[i])
+class RowGate:
+    """`store.gate_and_add` on row `row` of a session's
+    `MultiRobotStore`, in place. The store's tensors are buffers of the
+    runner: the session sets `store` to its current store before every
+    frame, and when it has reallocated the store (a robot joined past the
+    allocated rows) `rebind` points the buffers at the new tensors, after
+    which the runner captures its gated segments anew. Outputs: `added`
+    (device bool) and `slot` (device int64)."""
+
+    def __init__(self, store: mstore_lib.MultiRobotStore, row: int, dist_thresh: float,
+                 leaf: float):
+        self.store, self.row = store, row
+        self.dist_thresh, self.leaf = dist_thresh, leaf
+
+    def bufs(self) -> dict:
+        s = self.store.stores
+        return dict(ms_xyz=s.xyz, ms_mask=s.mask, ms_R=s.poses.R, ms_t=s.poses.t,
+                    ms_stamps=s.stamps, ms_count=s.count, ms_last_R=s.last_pose.R,
+                    ms_last_t=s.last_pose.t, ms_valid=self.store.desc_valid)
+
+    def rebind(self, b: dict) -> bool:
+        new = self.bufs()
+        if all(b[k].data_ptr() == v.data_ptr() for k, v in new.items()):
+            return False
+        b.update(new)
+        return True
+
+    def __call__(self, b: dict, pose: Pose) -> dict:
+        stores = kf.KeyframeStore(xyz=b["ms_xyz"], mask=b["ms_mask"],
+                                  poses=Pose(b["ms_R"], b["ms_t"]), stamps=b["ms_stamps"],
+                                  count=b["ms_count"], last_pose=Pose(b["ms_last_R"], b["ms_last_t"]))
+        store = mstore_lib.MultiRobotStore(stores=stores, descriptors=None, desc_valid=b["ms_valid"])
+        _, added, slot = mstore_lib.gate_and_add(store, self.row, pcl.PointCloud(b["xyz"], b["mask"]),
+                                                 pose, b["stamp"], dist_thresh=self.dist_thresh,
+                                                 leaf=self.leaf)
+        return dict(added=added, slot=slot)
+
+
+# --------------------------------------------------------------------------
+# runners
+# --------------------------------------------------------------------------
+
+
+def _load_frame(b: dict, xyz: torch.Tensor, mask: torch.Tensor, times: torch.Tensor | None,
+                stamp: float) -> None:
+    """Copy a frame's inputs into the buffers (called once a frame). A
+    CPU input in pinned memory reaches the card without a host sync."""
+    b["xyz"].copy_(xyz, non_blocking=True)
+    b["mask"].copy_(mask, non_blocking=True)
     if times is not None:
-        b["times"].copy_(times[i])
-    b["stamp"].fill_(float(i))
+        b["times"].copy_(times, non_blocking=True)
+    b["stamp"].fill_(float(stamp))
+
+
+class _Runner:
+    """What both front-ends' runners share: the segments, the frame
+    buffers, the gate and its recaptures."""
+
+    GATED: tuple = ()
+
+    def __init__(self, dev, n_points: int, with_times: bool, gate):
+        self.segs = Segments(dev)
+        self.gate = gate
+        self.steps = 0
+        self.gate_recaptures = 0
+        self.b = dict(xyz=torch.empty((n_points, 3), device=dev),
+                      mask=torch.empty((n_points,), dtype=torch.bool, device=dev),
+                      stamp=torch.zeros((), device=dev))
+        if with_times:
+            self.b["times"] = torch.empty((n_points,), device=dev)
+        if gate is not None:
+            self.b.update(gate.bufs())
+
+    def _rebind_gate(self) -> None:
+        if self.gate is not None and self.gate.rebind(self.b):
+            self.gate_recaptures += sum(self.segs.drop(n) for n in self.GATED)
+
+    def stats(self) -> dict:
+        s = self.segs
+        return dict(frames=self.steps, captures=s.captures, replays=s.replays,
+                    capture_s=s.capture_s, pool_bytes=s.pool_bytes(),
+                    gate_recaptures=self.gate_recaptures)
+
+    def close(self) -> dict:
+        """Release the graphs once their last replay has run; returns the
+        runner's counts (`stats`)."""
+        return dict(self.segs.close(self.steps), gate_recaptures=self.gate_recaptures)
+
+
+class Scan2Map(_Runner):
+    """scan2map's runner: `odometry.step` with `config` from `state`,
+    then the gate, a frame a `step`, on (N, 3) / (N,) scans (with (N,)
+    point times when `with_times`)."""
+
+    GATED = ("commit",)
+
+    def __init__(self, state: odometry.OdometryState, config: odometry.OdometryConfig,
+                 n_points: int, with_times: bool = False, gate=None):
+        super().__init__(state.pose.t.device, n_points, with_times, gate)
+        self.config, self.frame = config, state.frame
+        self.leaf, self.coarse_leaf = state.grid.leaf, state.coarse_grid.leaf
+        R, t = state.pose
+        self.b.update(R=R.clone(), t=t.clone(), prev_R=state.prev_pose.R.clone(),
+                      prev_t=state.prev_pose.t.clone(), new_R=R.clone(), new_t=t.clone(),
+                      coarse_R=R.clone(), grid=state.grid.packed.clone(),
+                      coarse=state.coarse_grid.packed.clone())
+
+    def pose(self) -> Pose:
+        return Pose(self.b["R"], self.b["t"])
+
+    def state(self) -> odometry.OdometryState:
+        """The state on the buffers (views: the next step rewrites them)."""
+        b = self.b
+        return odometry.OdometryState(
+            grid=voxel_grid.VoxelGrid(b["grid"], self.leaf),
+            coarse_grid=voxel_grid.VoxelGrid(b["coarse"], self.coarse_leaf),
+            pose=self.pose(), prev_pose=Pose(b["prev_R"], b["prev_t"]), frame=self.frame)
+
+    def _predict(self, b):
+        return odometry.predict(Pose(b["R"], b["t"]), Pose(b["prev_R"], b["prev_t"]),
+                                pcl.PointCloud(b["xyz"], b["mask"]), self.config, b.get("times"))
+
+    def _first(self, b):  # frame 0: no registration, the pose is the prediction
+        pred, scan, ds = self._predict(b)
+        b["new_R"].copy_(pred.R)
+        b["new_t"].copy_(pred.t)
+        return dict(scan=scan, ds=ds)
+
+    def _coarse(self, b):
+        pred, scan, ds = self._predict(b)
+        res = odometry.register_coarse(ds, voxel_grid.VoxelGrid(b["coarse"], self.coarse_leaf),
+                                       pred, self.config)
+        return dict(scan=scan, ds=ds, coarse_raw=res.pose.R, coarse_t=res.pose.t)
+
+    def _fine(self, b):
+        res = odometry.register_fine(b["ds"], voxel_grid.VoxelGrid(b["grid"], self.leaf),
+                                     Pose(b["coarse_R"], b["coarse_t"]), self.config)
+        b["new_t"].copy_(res.pose.t)
+        return dict(fine_raw=res.pose.R, error=res.error, inliers=res.num_inliers)
+
+    def _insert(self, b):
+        grid = odometry.insert_fine(voxel_grid.VoxelGrid(b["grid"], self.leaf), b["scan"],
+                                    Pose(b["new_R"], b["new_t"]), self.config)
+        b["grid"].copy_(grid.packed)
+        return {}
+
+    def _decay(self, b):
+        grid = odometry.decay_fine(voxel_grid.VoxelGrid(b["grid"], self.leaf),
+                                   Pose(b["new_R"], b["new_t"]), self.config)
+        b["grid"].copy_(grid.packed)
+        return {}
+
+    def _coarse_insert(self, b):
+        grid = odometry.insert_coarse(voxel_grid.VoxelGrid(b["coarse"], self.coarse_leaf), b["ds"],
+                                      Pose(b["new_R"], b["new_t"]), self.config)
+        b["coarse"].copy_(grid.packed)
+        return {}
+
+    def _commit(self, b):
+        b["prev_R"].copy_(b["R"])
+        b["prev_t"].copy_(b["t"])
+        b["R"].copy_(b["new_R"])
+        b["t"].copy_(b["new_t"])
+        return {} if self.gate is None else self.gate(b, Pose(b["R"], b["t"]))
+
+    def step(self, xyz, mask, times=None, stamp: float = 0.0, shed: bool = False) -> dict:
+        """One frame: `odometry.step(shed=shed)` on the scan, then the gate
+        at `stamp`. Returns the frame's outputs: the gate's, and `error`
+        and `inliers` from the state's frame 1 on; on the card they are
+        the graphs' tensors, which the next step rewrites."""
+        b, segs, i = self.b, self.segs, self.frame
+        run = segs.eager if self.steps == 0 else segs.run
+        out = {}
+        with segs.on_stream():
+            _load_frame(b, xyz, mask, times, stamp)
+            if i == 0:
+                b.update(run("first", self._first, b))
+            else:
+                b.update(run("coarse", self._coarse, b))
+                b["coarse_R"].copy_(so3.project(b["coarse_raw"]))
+                b.update(run("fine", self._fine, b))
+                b["new_R"].copy_(so3.project(b["fine_raw"]))
+                out.update(error=b["error"], inliers=b["inliers"])
+            if not shed:
+                run("insert", self._insert, b)
+                if odometry.decays(i, self.config):
+                    run("decay", self._decay, b)
+                if odometry.inserts_coarse(i, self.config):
+                    run("coarse_insert", self._coarse_insert, b)
+            self._rebind_gate()
+            gated = run("commit", self._commit, b)
+            b.update(gated)
+        self.frame += 1
+        self.steps += 1
+        return dict(out, **gated)
+
+
+class Lio(_Runner):
+    """The LIO front-end's runner: `lio.step` with `config` from `state`,
+    then the gate, a frame a `step`. `end`: every point's time is
+    clipped to it and it stands for missing point times (the batch path:
+    packet 0's sweep end); None: each frame's own packet's sweep end
+    stands for missing times and given times are used unclipped (the
+    session, as the reference's `OnlineSlam.add_frame`)."""
+
+    GATED = ("origin", "step_first", "step")
+    FIELDS = ("R", "p", "v", "bg", "ba", "R_li", "t_li", "grav", "P")
+
+    def __init__(self, state, config, n_points: int, with_times: bool = False, gate=None,
+                 end: torch.Tensor | None = None):
+        super().__init__(state.p.device, n_points, with_times, gate)
+        self.config, self.frame, self.leaf = config, state.frame, state.grid.leaf
+        self.n_points = n_points
+        self.b.update({f: getattr(state, f).clone() for f in self.FIELDS})
+        self.b["grid"] = state.grid.packed.clone()
+        if end is not None:
+            self.b["end"] = end
+
+    @property
+    def imu_len(self) -> int | None:
+        """Samples of the IMU packets the buffers hold (None before the first)."""
+        return None if "dt" not in self.b else self.b["dt"].shape[0]
+
+    def pose(self) -> Pose:
+        return Pose(self.b["R"], self.b["p"])
+
+    def state(self):
+        """The state on the buffers (views: the next step rewrites them)."""
+        from ..frontend import lio as lio_mod
+
+        return lio_mod.LioState(**{f: self.b[f] for f in self.FIELDS},
+                                grid=voxel_grid.VoxelGrid(self.b["grid"], self.leaf),
+                                frame=self.frame)
+
+    def _origin(self, b):
+        return {} if self.gate is None else self.gate(b, Pose(b["R"], b["p"]))
+
+    def _frame_fn(self, frame: int):
+        from ..frontend import lio as lio_mod
+
+        def fn(b):
+            if "end" in b:
+                pt_time = b["end"].expand(self.n_points) if "times" not in b \
+                    else torch.minimum(b["times"], b["end"])
+            else:
+                end = torch.sum(b["dt"]) * 0.999
+                pt_time = end.expand(self.n_points) if "times" not in b else b["times"]
+            state = lio_mod.LioState(**{f: b[f] for f in self.FIELDS},
+                                     grid=voxel_grid.VoxelGrid(b["grid"], self.leaf), frame=frame)
+            new, _ = lio_mod.step(state, pcl.PointCloud(b["xyz"], b["mask"]), pt_time,
+                                  lio_mod.ImuSample(gyro=b["gyro"], acc=b["acc"], dt=b["dt"]),
+                                  self.config)
+            for f in self.FIELDS:
+                b[f].copy_(getattr(new, f))
+            b["grid"].copy_(new.grid.packed)
+            return {} if self.gate is None else self.gate(b, new.pose())
+        return fn
+
+    def step(self, xyz, mask, times=None, stamp: float = 0.0, imu: tuple | None = None) -> dict:
+        """One frame: with `imu` = (gyro (S, 3), acc (S, 3), dt (S)),
+        `lio.step` on the packet, then the gate at `stamp`; without, the
+        gate on the current pose alone (no filter step). Returns the
+        gate's outputs (on the card the graphs' tensors, which the next
+        step rewrites). Every packet of a runner has the same S."""
+        b, segs = self.b, self.segs
+        run = segs.eager if self.steps == 0 else segs.run
+        with segs.on_stream():
+            _load_frame(b, xyz, mask, times, stamp)
+            self._rebind_gate()
+            if imu is None:
+                out = run("origin", self._origin, b)
+            else:
+                for name, x in zip(("gyro", "acc", "dt"), imu):
+                    if name not in b:
+                        b[name] = torch.empty(x.shape, dtype=x.dtype, device=b["p"].device)
+                    b[name].copy_(x, non_blocking=True)
+                out = run("step_first" if self.frame == 0 else "step", self._frame_fn(self.frame), b)
+                self.frame += 1
+            b.update(out)
+        self.steps += 1
+        return out
 
 
 def scan2map(scans: pcl.PointCloud, config: odometry.OdometryConfig, origin: Pose,
@@ -221,104 +540,26 @@ def scan2map(scans: pcl.PointCloud, config: odometry.OdometryConfig, origin: Pos
     on the same device (`pipeline._frontend_scan2map`)."""
     dev = scans.xyz.device
     T, N = scans.xyz.shape[:2]
-    segs = Segments(dev)
-    state = odometry.init(config, origin)
-    b = dict(xyz=torch.empty((N, 3), device=dev), mask=torch.empty((N,), dtype=torch.bool, device=dev),
-             stamp=torch.zeros((), device=dev),
-             R=origin.R.clone(), t=origin.t.clone(), prev_R=origin.R.clone(),
-             prev_t=origin.t.clone(), new_R=origin.R.clone(), new_t=origin.t.clone(),
-             coarse_R=origin.R.clone(), grid=state.grid.packed, coarse=state.coarse_grid.packed)
-    if times is not None:
-        b["times"] = torch.empty((N,), device=dev)
-    if store is not None:
-        b.update(_store_bufs(store))
-    leaf, coarse_leaf = state.grid.leaf, state.coarse_grid.leaf
+    runner = Scan2Map(odometry.init(config, origin), config, N, times is not None,
+                      None if store is None else StoreGate(store, **(gate or {})))
     out_R = torch.empty((T, 3, 3), device=dev)
     out_t = torch.empty((T, 3), device=dev)
     added = torch.empty((T,), dtype=torch.bool, device=dev) if store is not None else None
     err = torch.zeros((T,), device=dev)
     inl = torch.zeros((T,), device=dev)
-    gate = gate or {}
-
-    def pose(b, prefix=""):
-        return Pose(b[prefix + "R"], b[prefix + "t"])
-
-    def predict(b):
-        return odometry.predict(pose(b), pose(b, "prev_"), pcl.PointCloud(b["xyz"], b["mask"]),
-                                config, b.get("times"))
-
-    def first(b):  # frame 0: no registration, the pose is the prediction
-        pred, scan, ds = predict(b)
-        b["new_R"].copy_(pred.R)
-        b["new_t"].copy_(pred.t)
-        return dict(scan=scan, ds=ds)
-
-    def coarse(b):
-        pred, scan, ds = predict(b)
-        res = odometry.register_coarse(ds, voxel_grid.VoxelGrid(b["coarse"], coarse_leaf), pred,
-                                       config)
-        return dict(scan=scan, ds=ds, coarse_raw=res.pose.R, coarse_t=res.pose.t)
-
-    def fine(b):
-        res = odometry.register_fine(b["ds"], voxel_grid.VoxelGrid(b["grid"], leaf),
-                                     Pose(b["coarse_R"], b["coarse_t"]), config)
-        b["new_t"].copy_(res.pose.t)
-        return dict(fine_raw=res.pose.R, error=res.error, inliers=res.num_inliers)
-
-    def insert(b):
-        grid = odometry.insert_fine(voxel_grid.VoxelGrid(b["grid"], leaf), b["scan"], pose(b, "new_"),
-                                    config)
-        b["grid"].copy_(grid.packed)
-        return {}
-
-    def decay(b):
-        grid = odometry.decay_fine(voxel_grid.VoxelGrid(b["grid"], leaf), pose(b, "new_"), config)
-        b["grid"].copy_(grid.packed)
-        return {}
-
-    def coarse_insert(b):
-        grid = odometry.insert_coarse(voxel_grid.VoxelGrid(b["coarse"], coarse_leaf), b["ds"],
-                                      pose(b, "new_"), config)
-        b["coarse"].copy_(grid.packed)
-        return {}
-
-    def commit(b):
-        b["prev_R"].copy_(b["R"])
-        b["prev_t"].copy_(b["t"])
-        b["R"].copy_(b["new_R"])
-        b["t"].copy_(b["new_t"])
-        return {} if store is None else dict(added=_gate(b, pose(b), gate))
-
-    with segs.on_stream():
+    with runner.segs.on_stream():
         for i in range(T):
-            _load_frame(b, scans, i, times)
-            run = segs.eager if i == 0 else segs.run
-            if i == 0:
-                b.update(run("first", first, b))
-            else:
-                b.update(run("coarse", coarse, b))
-                b["coarse_R"].copy_(so3.project(b["coarse_raw"]))
-                b.update(run("fine", fine, b))
-                b["new_R"].copy_(so3.project(b["fine_raw"]))
-                err[i].copy_(b["error"])
-                inl[i].copy_(b["inliers"])
-            if not (shed is not None and shed[i]):
-                run("insert", insert, b)
-                if odometry.decays(i, config):
-                    run("decay", decay, b)
-                if odometry.inserts_coarse(i, config):
-                    run("coarse_insert", coarse_insert, b)
-            b.update(run("commit", commit, b))
-            out_R[i].copy_(b["R"])
-            out_t[i].copy_(b["t"])
+            out = runner.step(scans.xyz[i], scans.mask[i], None if times is None else times[i],
+                              float(i), shed=shed is not None and bool(shed[i]))
+            if "error" in out:
+                err[i].copy_(out["error"])
+                inl[i].copy_(out["inliers"])
+            out_R[i].copy_(runner.b["R"])
+            out_t[i].copy_(runner.b["t"])
             if store is not None:
-                added[i].copy_(b["added"])
-    final = odometry.OdometryState(
-        grid=voxel_grid.VoxelGrid(b["grid"], leaf),
-        coarse_grid=voxel_grid.VoxelGrid(b["coarse"], coarse_leaf),
-        pose=pose(b), prev_pose=pose(b, "prev_"), frame=T)
-    return Run(poses=Pose(out_R, out_t), store=None if store is None else _store(b), added=added,
-               state=final, error=err, inliers=inl, stats=segs.close(T))
+                added[i].copy_(out["added"])
+    return Run(poses=Pose(out_R, out_t), store=None if store is None else runner.gate.store(runner.b),
+               added=added, state=runner.state(), error=err, inliers=inl, stats=runner.close())
 
 
 def lio(scans: pcl.PointCloud, imu: tuple, config, origin: Pose, extrinsic: Pose | None = None,
@@ -335,60 +576,20 @@ def lio(scans: pcl.PointCloud, imu: tuple, config, origin: Pose, extrinsic: Pose
     gyro, acc, dts = imu
     dev = scans.xyz.device
     T, N = scans.xyz.shape[:2]
-    segs = Segments(dev)
-    s0 = lio_mod.init(config, origin, extrinsic=extrinsic)
-    fields = ("R", "p", "v", "bg", "ba", "R_li", "t_li", "grav", "P")
-    b = {f: getattr(s0, f).clone() for f in fields}
-    b.update(grid=s0.grid.packed, xyz=torch.empty((N, 3), device=dev),
-             mask=torch.empty((N,), dtype=torch.bool, device=dev),
-             stamp=torch.zeros((), device=dev), gyro=torch.empty_like(gyro[0]),
-             acc=torch.empty_like(acc[0]), dt=torch.empty_like(dts[0]),
-             end=torch.sum(dts[0]) * 0.999)
-    if times is not None:
-        b["times"] = torch.empty((N,), device=dev)
-    if store is not None:
-        b.update(_store_bufs(store))
-    leaf = s0.grid.leaf
+    runner = Lio(lio_mod.init(config, origin, extrinsic=extrinsic), config, N, times is not None,
+                 None if store is None else StoreGate(store, **(gate or {})),
+                 end=torch.sum(dts[0]) * 0.999)
     out_R = torch.empty((T, 3, 3), device=dev)
     out_t = torch.empty((T, 3), device=dev)
     added = torch.empty((T,), dtype=torch.bool, device=dev) if store is not None else None
-    gate = gate or {}
-
-    def state(b, frame):
-        return lio_mod.LioState(**{f: b[f] for f in fields},
-                                grid=voxel_grid.VoxelGrid(b["grid"], leaf), frame=frame)
-
-    def frame_fn(frame):
-        def fn(b):
-            pt_time = b["end"].expand(N) if times is None else torch.minimum(b["times"], b["end"])
-            new, _ = lio_mod.step(state(b, frame), pcl.PointCloud(b["xyz"], b["mask"]), pt_time,
-                                  lio_mod.ImuSample(gyro=b["gyro"], acc=b["acc"], dt=b["dt"]), config)
-            for f in fields:
-                b[f].copy_(getattr(new, f))
-            b["grid"].copy_(new.grid.packed)
-            return {} if store is None else dict(added=_gate(b, new.pose(), gate))
-        return fn
-
-    def origin_gate(b):
-        return {} if store is None else dict(added=_gate(b, origin, gate))
-
-    with segs.on_stream():
+    with runner.segs.on_stream():
         for i in range(T):
-            _load_frame(b, scans, i, times)
-            if i == 0:
-                b.update(segs.eager("origin", origin_gate, b))
-                out_R[0].copy_(origin.R)
-                out_t[0].copy_(origin.t)
-            else:
-                b["gyro"].copy_(gyro[i - 1])
-                b["acc"].copy_(acc[i - 1])
-                b["dt"].copy_(dts[i - 1])
-                name = "step_first" if i == 1 else "step"
-                b.update(segs.run(name, frame_fn(i - 1), b))
-                out_R[i].copy_(b["R"])
-                out_t[i].copy_(b["p"])
+            packet = None if i == 0 else (gyro[i - 1], acc[i - 1], dts[i - 1])
+            out = runner.step(scans.xyz[i], scans.mask[i], None if times is None else times[i],
+                              float(i), packet)
+            out_R[i].copy_(origin.R if i == 0 else runner.b["R"])
+            out_t[i].copy_(origin.t if i == 0 else runner.b["p"])
             if store is not None:
-                added[i].copy_(b["added"])
-    final = state(b, T - 1)
-    return Run(poses=Pose(out_R, out_t), store=None if store is None else _store(b), added=added,
-               state=final, error=None, inliers=None, stats=segs.close(T))
+                added[i].copy_(out["added"])
+    return Run(poses=Pose(out_R, out_t), store=None if store is None else runner.gate.store(runner.b),
+               added=added, state=runner.state(), error=None, inliers=None, stats=runner.close())

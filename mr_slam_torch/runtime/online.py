@@ -14,8 +14,20 @@ Backing state is the batched `parallel.store.MultiRobotStore`, written
 in place. A session lives on one device, named when it is built
 (`device="cuda"` by default; building one on a machine without CUDA
 raises, it never falls back to the CPU). Frames may arrive on any
-device: `add_frame` moves them to the session's, asynchronously from a
-CPU cloud.
+device: `add_frame` copies them into the robot's runner, asynchronously
+from a CPU cloud (through pinned memory).
+
+The tick is the counterpart of the reference's jitted `odometry.step` /
+`lio.step`, `store.gate_and_add` and GEM steps: each robot keeps one
+runner (`_RobotGraphs`, on `runtime/frame_graph`'s `Scan2Map` / `Lio`),
+keyed on its front-end, the point count and whether point times come,
+whose first frame runs eagerly and whose later frames replay CUDA
+graphs on the card (the front-end step, the gate with the stamp from a
+static buffer, the GEM tick on static map buffers); scan2map's SO(3)
+projections and the GEM motion scalars stay eager between them. A runner
+notices a reallocated store (a robot joining past the allocated rows)
+and captures its gate anew. The eager tick is kept as
+`_add_frame_eager`, the oracle that the runner is held to bit for bit.
 
 Host syncs per frame: one scalar, the keyframe gate (needed to schedule
 the descriptor write and the loop stage), plus one transfer of the two
@@ -33,6 +45,7 @@ its budget is the keyframe gate's one (plus GEM's).
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from typing import Optional
@@ -49,9 +62,106 @@ from ..geometry.tf_tree import TransformBuffer
 from ..mapping import elevation
 from ..ops import pointcloud as pcl
 from ..parallel import store as mstore_lib
+from . import frame_graph
 from . import observability as obs
 from . import pipeline as pl
 from .config import SlamConfig
+
+
+class _RobotGraphs:
+    """A robot's runner in a session: its front-end's runner
+    (`frame_graph.Scan2Map` / `Lio`) gating into the robot's row of the
+    session's store (`frame_graph.RowGate`) and, with GEM on, the GEM
+    tick as segments of the same runner on static `ElevationMap`
+    buffers (`_gem_motion`, `_gem_fuse`). Built from the session's state
+    (`robots[r]["odo"]`, `["gem_local"]`, `["gem_last_pose"]`), which it
+    replaces by views of its buffers."""
+
+    def __init__(self, sess: "OnlineSlam", robot: int, key: tuple):
+        rs = sess.robots[robot]
+        frontend, n_points, with_times = key
+        kcfg = rs["kf_cfg"]
+        gate = frame_graph.RowGate(sess.mstore, sess.rows[robot], kcfg.dist_thresh, kcfg.leaf)
+        cls = frame_graph.Lio if frontend == "lio" else frame_graph.Scan2Map
+        self.key = key
+        self.front = cls(rs["odo"], rs["odo_cfg"], n_points, with_times, gate)
+        rs["odo"] = self.odo = self.front.state()
+        self.gem = None
+        if sess.enable_gem:
+            m, last = rs["gem_local"], rs.get("gem_last_pose")
+            R, t = self.front.pose()
+            if last is None:
+                last = Pose(torch.eye(3, device=R.device), torch.zeros(3, device=R.device))
+            self.gem_cfg = rs.get("gem_cfg", sess.cfg.elevation)
+            self.gem = dict(
+                height=m.height.clone(), variance=m.variance.clone(), valid=m.valid.clone(),
+                origin=m.origin.clone(), resolution=m.resolution.clone(), last_R=last.R.clone(),
+                last_t=last.t.clone(), sigma_z=torch.zeros((), device=R.device),
+                sigma_tilt=torch.zeros((), device=R.device), xyz=self.front.b["xyz"],
+                mask=self.front.b["mask"], R=R, t=t)
+            g = self.gem
+            rs["gem_local"] = self.gem_map = elevation.ElevationMap(
+                g["height"], g["variance"], g["valid"], g["origin"], g["resolution"])
+            self.gem_last = Pose(g["last_R"], g["last_t"])
+            if rs.get("gem_last_pose") is not None:
+                rs["gem_last_pose"] = self.gem_last
+
+    def fits(self, rs: dict, key: tuple, imu_len) -> bool:
+        """Whether the runner takes this frame: the same key, LIO packets
+        of its length, and the session's state still its buffers."""
+        if key != self.key or rs["odo"] is not self.odo:
+            return False
+        if imu_len is not None and self.front.imu_len not in (None, imu_len):
+            return False
+        last = rs.get("gem_last_pose")
+        return self.gem is None or (rs["gem_local"] is self.gem_map
+                                    and (last is None or last is self.gem_last))
+
+    def gem_tick(self, rs: dict, first: bool) -> None:
+        """`OnlineSlam._gem_tick` on the buffers: the motion scalars come
+        to the host as in the reference (`float(...)`), their drift
+        products go back as f32 device scalars."""
+        b, e, segs = self.gem, self.gem_cfg, self.front.segs
+        run = segs.eager if first else segs.run
+        with segs.on_stream():
+            if rs.get("gem_last_pose") is not None and (e.drift_z > 0.0 or e.drift_tilt > 0.0):
+                dt, drot = run("gem_motion", _gem_motion, b)["motion"].tolist()
+                b["sigma_z"].fill_(e.drift_z * dt)
+                b["sigma_tilt"].fill_(e.drift_tilt * drot)
+                run("gem_moved", functools.partial(_gem_fuse, moved=True), b)
+            else:
+                run("gem", _gem_fuse, b)
+        rs["gem_last_pose"] = self.gem_last
+
+    def close(self) -> None:
+        self.front.close()
+
+
+def _gem_motion(b: dict) -> dict:
+    """The motion since the last GEM tick (distance, rotation angle), as
+    `OnlineSlam._gem_tick` computes it."""
+    last, pose = Pose(b["last_R"], b["last_t"]), Pose(b["R"], b["t"])
+    c = torch.clamp((torch.trace(last.R.T @ pose.R) - 1.0) / 2.0, -1.0, 1.0)
+    return dict(motion=torch.stack([torch.linalg.norm(pose.t - last.t), torch.arccos(c)]))
+
+
+def _gem_fuse(b: dict, moved: bool = False) -> dict:
+    """The rest of the GEM tick on the buffers: shift, predict, the
+    motion update from the f32 drift scalars `sigma_z` / `sigma_tilt`
+    (when `moved`), fuse; the pose becomes the last pose."""
+    pose = Pose(b["R"], b["t"])
+    m = elevation.ElevationMap(b["height"], b["variance"], b["valid"], b["origin"], b["resolution"])
+    m = elevation.predict(elevation.shift(m, pose.t[:2]))
+    if moved:
+        m = elevation.motion_update(m, pose.t[:2], sigma_z=b["sigma_z"], sigma_tilt=b["sigma_tilt"])
+    b["last_R"].copy_(pose.R)
+    b["last_t"].copy_(pose.t)
+    scan = pcl.PointCloud(b["xyz"], b["mask"])
+    m = elevation.fuse(m, pcl.transform(scan, pose), elevation.sensor_variance(scan.xyz))
+    for f in ("height", "variance", "valid", "origin"):
+        b[f].copy_(getattr(m, f))
+    return {}
+
 
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device on a machine without
@@ -93,6 +203,7 @@ class OnlineSlam:
         self._last_compose_stamp: Optional[float] = None
         self._last_tf_stamp: Optional[float] = None
         self._over_budget_prev = False  # last frame blew the deadline
+        self._runners: dict[int, _RobotGraphs] = {}  # robot id -> its runner
 
     # -- batched-store plumbing ----------------------------------------
     def _kf_capacity(self) -> int:
@@ -202,21 +313,35 @@ class OnlineSlam:
     def add_frame(self, robot: int, scan: pcl.PointCloud, stamp: float = 0.0, times=None,
                   imu=None) -> Pose:
         """Odometry tick + keyframe gate. Returns the current odometry
-        pose estimate for `robot`. `times`: optional (P,) sweep-relative
-        point times, motion compensation in either front-end. `imu`:
-        (gyro (S, 3), acc (S, 3), dt (S)), the packet covering the sweep,
-        required on every frame after the first of a LIO robot (frame 0
-        runs no filter step and gates the origin keyframe).
+        pose estimate for `robot` (tensors of its own). `times`: optional
+        (P,) sweep-relative point times, motion compensation in either
+        front-end. `imu`: (gyro (S, 3), acc (S, 3), dt (S)), the packet
+        covering the sweep, required on every frame after the first of a
+        LIO robot (frame 0 runs no filter step and gates the origin
+        keyframe).
+
+        The tick goes through the robot's runner (`_RobotGraphs`): the
+        front-end step, the gate and the GEM tick as segments of static
+        buffers, replayed from CUDA graphs on the card from the runner's
+        second frame on. `robots[robot]["odo"]` and `["gem_local"]` are
+        then views of its buffers, which the next frame rewrites.
 
         Sync budget: one scalar device-to-host transfer per frame (the
         keyframe-gate bit), plus the GEM tick's motion scalars when GEM
         is on."""
+        return self._tick(robot, scan, stamp, times, imu, self._frontend_graphs)
+
+    def _add_frame_eager(self, robot: int, scan: pcl.PointCloud, stamp: float = 0.0, times=None,
+                         imu=None) -> Pose:
+        """`add_frame` with every step eager, on fresh tensors: the oracle
+        the runner is held to (bit for bit on one device)."""
+        return self._tick(robot, scan, stamp, times, imu, self._frontend_eager)
+
+    def _tick(self, robot, scan, stamp, times, imu, frontend) -> Pose:
         if robot not in self.robots:
             self.register_robot(robot)
         rs = self.robots[robot]
-        row = self.rows[robot]
         sched = self.cfg.scheduler
-        scan = pcl.PointCloud(self._to_device(scan.xyz), self._to_device(scan.mask))
         # two-rate + load-shed decision: never frame 0 or the frame right
         # after a registered keyframe (the map must grow around new
         # keyframes); a shed frame's map contribution is DROPPED
@@ -225,31 +350,13 @@ class OnlineSlam:
             (sched.map_every > 1 and rs["frame"] % sched.map_every != 0)
             or (sched.shed and self._over_budget_prev)
         ))
-        if times is not None:
-            times = self._to_device(times)
         t_frame0 = time.perf_counter()
         with obs.tracer.span("online.frontend"):
-            if rs["frontend"] == "lio":
-                if imu is not None:
-                    gyro, acc, dts = (self._to_device(x) for x in imu)
-                    end = torch.sum(dts) * 0.999
-                    pt_time = end.expand(scan.xyz.shape[0]) if times is None else times
-                    rs["odo"], _ = lio.step(rs["odo"], scan, pt_time,
-                                            lio.ImuSample(gyro=gyro, acc=acc, dt=dts), rs["odo_cfg"])
-                elif rs["frame"] > 0:
-                    raise ValueError(f"robot {robot} runs the LIO front-end; add_frame needs an "
-                                     "imu=(gyro, acc, dt) packet per frame")
-                pose = rs["odo"].pose()
-            else:
-                rs["odo"], _ = odometry.step(rs["odo"], scan, rs["odo_cfg"], t_rel=times, shed=shed)
-                pose = rs["odo"].pose
+            if rs["frontend"] == "lio" and imu is None and rs["frame"] > 0:
+                raise ValueError(f"robot {robot} runs the LIO front-end; add_frame needs an "
+                                 "imu=(gyro, acc, dt) packet per frame")
             k = self.kf_counts[robot]  # the slot a keyframe lands in
-            self.mstore, added, _ = mstore_lib.gate_and_add(
-                self.mstore, row, scan, pose,
-                torch.full((), float(stamp), dtype=torch.float32, device=self.device),
-                dist_thresh=rs["kf_cfg"].dist_thresh, leaf=rs["kf_cfg"].leaf,
-            )
-            added = bool(added.item())  # the one per-frame sync
+            pose, added, gem_tick = frontend(robot, rs, scan, stamp, times, imu, shed)
         rs["frame"] += 1
         if added:
             self.kf_counts[robot] += 1
@@ -262,7 +369,7 @@ class OnlineSlam:
                 )
         if self.enable_gem:
             with obs.tracer.span("online.gem"):
-                self._gem_tick(rs, scan, pose)
+                gem_tick()
         if shed:
             obs.metrics.inc("frontend.frames_shed")
         if added:
@@ -293,6 +400,77 @@ class OnlineSlam:
                     pl._sync(self.device)
                 obs.metrics.inc("compose.runs")
         return pose
+
+    def _frontend_eager(self, robot, rs, scan, stamp, times, imu, shed):
+        """The front-end step and the gate on fresh tensors. Returns
+        (pose, added, the GEM tick to run)."""
+        scan = pcl.PointCloud(self._to_device(scan.xyz), self._to_device(scan.mask))
+        if times is not None:
+            times = self._to_device(times)
+        if rs["frontend"] == "lio":
+            if imu is not None:
+                gyro, acc, dts = (self._to_device(x) for x in imu)
+                end = torch.sum(dts) * 0.999
+                pt_time = end.expand(scan.xyz.shape[0]) if times is None else times
+                rs["odo"], _ = lio.step(rs["odo"], scan, pt_time,
+                                        lio.ImuSample(gyro=gyro, acc=acc, dt=dts), rs["odo_cfg"])
+            pose = rs["odo"].pose()
+        else:
+            rs["odo"], _ = odometry.step(rs["odo"], scan, rs["odo_cfg"], t_rel=times, shed=shed)
+            pose = rs["odo"].pose
+        self.mstore, added, _ = mstore_lib.gate_and_add(
+            self.mstore, self.rows[robot], scan, pose,
+            torch.full((), float(stamp), dtype=torch.float32, device=self.device),
+            dist_thresh=rs["kf_cfg"].dist_thresh, leaf=rs["kf_cfg"].leaf,
+        )
+        added = bool(added.item())  # the one per-frame sync
+        return pose, added, lambda: self._gem_tick(rs, scan, pose)
+
+    def _frontend_graphs(self, robot, rs, scan, stamp, times, imu, shed):
+        """The front-end step and the gate through the robot's runner.
+        Returns (pose, added, the GEM tick to run)."""
+        lio_frame = rs["frontend"] == "lio" and imu is not None
+        runner = self._runner(robot, rs, scan.xyz.shape[0], times is not None,
+                              imu[2].shape[0] if lio_frame else None)
+        front = runner.front
+        first = front.steps == 0
+        front.gate.store = self.mstore
+        args = (self._host(scan.xyz), self._host(scan.mask),
+                None if times is None else self._host(times), stamp)
+        if rs["frontend"] == "lio":
+            out = front.step(*args, imu=tuple(self._host(x) for x in imu) if lio_frame else None)
+        else:
+            out = front.step(*args, shed=shed)
+        rs["odo"] = runner.odo = front.state()
+        added = bool(out["added"].item())  # the one per-frame sync
+        R, t = front.pose()
+        return Pose(R.clone(), t.clone()), added, lambda: runner.gem_tick(rs, first)
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        """A frame input ready for a `copy_` into the runner's buffers
+        that does not block: pinned when a CPU tensor goes to the card."""
+        if self.device.type == "cuda" and x.device.type == "cpu":
+            return x.pin_memory()
+        return x
+
+    def _runner(self, robot: int, rs: dict, n_points: int, with_times: bool, imu_len):
+        """The robot's runner for a frame of `n_points` points, with or
+        without point times (and LIO packets of `imu_len` samples): the
+        current one when it fits and the session's state is still its
+        buffers, else a new one built from the session's state."""
+        key = (rs["frontend"], n_points, with_times)
+        runner = self._runners.get(robot)
+        if runner is not None and not runner.fits(rs, key, imu_len):
+            runner.close()
+            runner = None
+        if runner is None:
+            runner = self._runners[robot] = _RobotGraphs(self, robot, key)
+        return runner
+
+    def graph_stats(self) -> dict:
+        """Each robot's runner's frames, captures, replays, capture
+        seconds, graph-pool bytes and gate recaptures."""
+        return {r: run.front.stats() for r, run in self._runners.items()}
 
     # -- cadence products ------------------------------------------------
     def _solved_node(self, robot: int, K: int):
@@ -392,7 +570,9 @@ class OnlineSlam:
         keyframe k's BODY frame (`updateLocalMap` publishing SubMap{grid,
         pose}); `global_elevation` re-anchors it to the optimized pose."""
         cloud = elevation.to_cloud(rs["gem_local"])       # world frame
-        rs["gem_flushed"].append((k, pcl.transform(cloud, se3.inverse(pose))))
+        body = pcl.transform(cloud, se3.inverse(pose))
+        # the mask is a view of the grid's, which the next tick rewrites
+        rs["gem_flushed"].append((k, pcl.PointCloud(body.xyz, body.mask.clone())))
 
     def global_elevation(self, size: int = 512, center=(0.0, 0.0)):
         """Compose the global 2.5D map from flushed grid submaps, each
@@ -543,9 +723,10 @@ class OnlineSlam:
 
     # -- results --------------------------------------------------------
     def result(self) -> pl.SlamResult:
-        """The session's current result. The keyframe stores are cloned:
-        later frames write the session's store in place, and the result
-        must not change with them."""
+        """The session's current result. The keyframe stores and the
+        odometry poses are cloned: later frames write the session's store
+        and the runners' buffers in place, and the result must not change
+        with them."""
         if self._pending_kf:
             self.run_loop_stage()  # flush tail keyframes (the revisits!)
         ids = sorted(self.robots)
@@ -560,8 +741,10 @@ class OnlineSlam:
                 stamps=store.stamps.clone(), count=store.count.clone(),
                 last_pose=Pose(store.last_pose.R.clone(), store.last_pose.t.clone()),
             )
-            robots.append(pl.RobotResult(odom_poses=self.robots[r]["odo"].pose, store=store,
-                                         kf_frame_idx=np.arange(counts[r])))
+            rs = self.robots[r]
+            pose = rs["odo"].pose() if rs["frontend"] == "lio" else rs["odo"].pose
+            robots.append(pl.RobotResult(odom_poses=Pose(pose.R.clone(), pose.t.clone()),
+                                         store=store, kf_frame_idx=np.arange(counts[r])))
             for k in range(counts[r]):
                 node_of[ri, k] = self.node_of.get((r, k), -1)
         # re-solve if the graph grew since the last optimize: a stale
