@@ -54,7 +54,14 @@ Phases (each prints its own lines; any failure exits non-zero):
                capture seconds and pool MiB; one chunk of the first
                inter-robot pair through both paths: bit-equal, host
                launch calls and device kernels of each
-               (`chunk_launch_counts`).
+               (`chunk_launch_counts`). Every chordal solve of that run
+               (its runner's CUDA graphs, `runtime/solve_graph.py`) held
+               after the run to `chordal._optimize_eager` on a copy of its
+               inputs (`SolveRecord`): bit-equal; the solve runners'
+               captures, replays, capture seconds and pool MiB; then that
+               solve again through both paths (`solve_counts`):
+               bit-equal, seconds, host launch calls, device kernels and
+               host syncs of each.
   6. map     — the products of phase 5's result on the card:
                `pipeline.compose_map` and `pipeline.build_elevation(size=
                600)`. Checks: the stencil kernel launched, the costmap
@@ -93,8 +100,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                (`sequence_artifact.generate`: 2 robots x 24 frames at
                64x1024 rays, 0.3 laps, under `mr_slam_torch/build/`;
                `run_session(device=cuda)`: 48 frames, ATE < 0.5 m).
-               The stream's verify chunks are held to the eager chunk
-               as in phase 5 (`VerifyRecord`). Every `add_frame` goes
+               The stream's verify chunks and chordal solves are held
+               to the eager chunk and solve as in phase 5
+               (`VerifyRecord`, `SolveRecord`; the solve runners are
+               cleared first, and the session line counts their solves,
+               captures and replays). Every `add_frame` goes
                through its robot's runner (`runtime/online._RobotGraphs`:
                the front-end step, the keyframe gate and the GEM tick
                replayed from CUDA graphs from a runner's second frame
@@ -190,7 +200,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                seed=0)` on the card, `chordal.optimize` with `bench.py`'s
                budget (PGO_FULL) against `reference_solver.solve` on the
                host: ATE <= 1.1 x the solver's (JAX_REF_PGO is the JAX
-               package's own ratio on its own graph).
+               package's own ratio on its own graph); the solve three
+               times through its runner (eager, captures, replays; the
+               last one timed and gated), each held to the eager solve
+               (`SolveRecord`), then `solve_counts` as in phase 5.
  11. dist    — the multi-process runtime on the card: phase 5's scans,
                origins and config written under `mr_slam_torch/build/dist/`,
                DIST_PROCS `mr_slam_torch.examples.multihost_worker`
@@ -237,8 +250,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                robot 0's front-end rerun (CUDA graphs) and its eager
                frame loop bit-identical to the run's, the first launch
                of the run's verification held against the plain version
-               (`check_vgicp`), the run's verify chunks held to the eager
-               chunk as in phase 5, and every launch of one eager verify
+               (`check_vgicp`), the run's verify chunks and its solve
+               held to the eager chunk and solve as in phase 5, and every launch of one eager verify
                chunk of the run's loops held to the plain version on
                inliers, H and cost (TOL) and b (B_SUM_RTOL); that chunk's
                host launch calls through both paths. Prints the run's
@@ -912,7 +925,7 @@ def phase_main(dev):
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
-    with VerifyRecord() as verified:
+    with VerifyRecord() as verified, SolveRecord() as solved:
         res, wall = run()
     launches = hopper_vgicp.launch_count()
     peak = torch.cuda.max_memory_allocated()
@@ -935,6 +948,7 @@ def phase_main(dev):
     log(f"[main] keyframe ATE per robot (m): {[round(a, 4) for a in ates]}; JAX reference "
         f"{JAX_REF_ATE}")
     verified.check("phase 5 pipeline.run", cfg.loops.fitness_thresh)
+    solved.check("phase 5 pipeline.run")
     res2, wall2 = run()
     same = torch.equal(res.opt_poses.t, res2.opt_poses.t) and torch.equal(res.opt_poses.R, res2.opt_poses.R)
     log(f"[main] second run wall {wall2:.3f} s (backend.associate "
@@ -955,6 +969,7 @@ def phase_main(dev):
     frontend_s = [spans[f"robot{r}.frontend"]["total_s"] for r in range(N_ROBOTS)]
     frontend_graphs("phase 5 robot 0, scan2map", dev, scans[0], cfg.for_robot(0), origins[0])
     chunk_launch_counts("phase 5", *verify_chunk_paths(res, cfg, dev))
+    solve_counts("phase 5 default", *solved.records[0][0])
     return launches, res, scans, cfg, trajs, host_scans, frontend_s
 
 
@@ -1503,6 +1518,142 @@ def chunk_launch_counts(tag, eager, graphs):
     return dict(eager_calls=el, graph_calls=gl, eager_kernels=ek, graph_kernels=gk)
 
 
+# --------------------------------------------------------------------------
+# the chordal solve's CUDA graphs (`runtime/solve_graph.py`) against the
+# eager solve: phases 5, 7, 10 and 12
+# --------------------------------------------------------------------------
+
+
+def _leaves(x):
+    if isinstance(x, tuple):
+        return [leaf for v in x for leaf in _leaves(v)]
+    return [x]
+
+
+def _same_solve(a, b) -> bool:
+    """Whether two solves' (graph, anchors, config) are equal."""
+    import torch
+
+    return a[2] == b[2] and all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                                for x, y in zip(_leaves(a[:2]), _leaves(b[:2])))
+
+
+class SolveRecord:
+    """Every chordal solve of a main-path run, held to the eager solve.
+
+    Inside `with SolveRecord() as rec:` each `solve_graph.solve` (what
+    `chordal.optimize` runs without a process group) keeps a copy of its
+    graph and anchors, its config and its result (`rec.records`).
+    `rec.check(tag)` then runs `chordal._optimize_eager` on every kept
+    solve (after the run, so its spans and walls hold no oracle time;
+    solves of equal inputs share one oracle solve) and fails unless each
+    result is bit-equal. Prints those numbers and each kept runner's
+    solves, captures, replays, capture seconds and graph-pool MiB."""
+
+    def __enter__(self):
+        from mr_slam_torch.runtime import solve_graph
+
+        self.records = []
+        self._solve = solve_graph.solve
+        solve_graph.solve = self._recorded
+        return self
+
+    def __exit__(self, *exc):
+        from mr_slam_torch.runtime import solve_graph
+
+        solve_graph.solve = self._solve
+
+    def _recorded(self, g, anchors, config):
+        out = self._solve(g, anchors, config)
+        self.records.append(((_clone(g), anchors.clone(), config), out))
+        return out
+
+    def check(self, tag):
+        import torch
+
+        from mr_slam_torch.backend import chordal
+        from mr_slam_torch.runtime import solve_graph
+
+        t = time.perf_counter()
+        oracle, bad = [], []
+        for i, (inputs, got) in enumerate(self.records):
+            want = next((w for x, w in oracle if _same_solve(x, inputs)), None)
+            if want is None:
+                want = chordal._optimize_eager(*inputs)
+                oracle.append((inputs, want))
+            if not (torch.equal(got.R, want.R) and torch.equal(got.t, want.t)):
+                bad.append(i)
+        torch.cuda.synchronize()
+        n = len(self.records)
+        log(f"[solve] {tag}: {n} solves through the runners, held to _optimize_eager "
+            f"({len(oracle)} eager solves: equal inputs share one) in "
+            f"{time.perf_counter() - t:.1f} s: bit-equal in {n - len(bad)}")
+        runners = solve_graph.stats()
+        for r in runners:
+            log(f"[solve]   {tag} runner {r['nodes']} nodes / {r['edges']} edges, plan width "
+                f"{r['width']}, iterations {r['iters']}: {r['solves']} solves, {r['captures']} "
+                f"captures in {r['capture_s']:.3f} s, {r['replays']} replays, graph pool "
+                f"{r['pool_bytes'] / 2**20:.1f} MiB")
+        if bad:
+            raise AssertionError(f"{tag}: solves {bad} differ from _optimize_eager")
+        if not n:
+            raise AssertionError(f"{tag}: no solve ran")
+        return dict(solves=n, runners=runners)
+
+
+def solve_counts(tag, g, anchors, cfg):
+    """One solve of (g, anchors, cfg) through `chordal._optimize_eager` and
+    through its runner, after two solves that capture the runner's
+    graphs: bit-equal; seconds (the device synchronised); host launch
+    calls and device kernels (`count_launches`) and host syncs
+    (`count_syncs`): the eager solve's are its counts at gn_iters 1 plus
+    gn_iters - 1 times the difference to gn_iters 2, every GN step being
+    the same operations (the profiler costs ~0.4 ms a launch, ~1 min on a
+    whole eager PGO_FULL solve); the runner's captures, capture seconds and
+    pool MiB. Returns them."""
+    import torch
+
+    from mr_slam_torch.backend import chordal
+    from mr_slam_torch.runtime import solve_graph
+
+    def eager(c=cfg):
+        return chordal._optimize_eager(g, anchors, c)
+
+    def graphs():
+        return chordal.optimize(g, anchors, cfg)
+
+    graphs()
+    graphs()  # the runner's first solve may be its eager one: this one captures
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = eager()
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got = graphs()
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t
+    same = torch.equal(got.R, want.R) and torch.equal(got.t, want.t)
+    n = cfg.gn_iters - 1
+    (k1, c1), (k2, c2) = (count_launches(lambda i=i: eager(cfg._replace(gn_iters=i)))
+                          for i in (1, 2))
+    s1, s2 = (sum(count_syncs(lambda i=i: eager(cfg._replace(gn_iters=i))).values())
+              for i in (1, 2))
+    ek, el, es = k1 + n * (k2 - k1), c1 + n * (c2 - c1), s1 + n * (s2 - s1)
+    gk, gl = count_launches(graphs)
+    gs = sum(count_syncs(graphs).values())
+    r = solve_graph.stats()[-1]  # the runner just used
+    log(f"[solve] {tag}, one solve ({g.n_nodes} nodes, {g.n_edges} edges, iterations "
+        f"{r['iters']}): seconds eager {eager_s:.3f}, graphs {graph_s:.3f}; host launch calls "
+        f"eager {el} (at gn_iters 1: {c1}, 2: {c2}), graphs {gl}; device kernels eager {ek}, "
+        f"graphs {gk}; host syncs eager {es}, graphs {gs}; runner {r['captures']} captures in "
+        f"{r['capture_s']:.3f} s, graph pool {r['pool_bytes'] / 2**20:.1f} MiB; bit-equal {same}")
+    if not same:
+        raise AssertionError(f"{tag}: the replayed solve differs from the eager solve")
+    return dict(eager_s=eager_s, graph_s=graph_s, eager_calls=el, graph_calls=gl,
+                eager_kernels=ek, graph_kernels=gk, eager_syncs=es, graph_syncs=gs)
+
+
 def phase_online(dev, trajs, host_scans, cfg):
     """The online session on the card (see the module docstring).
     Returns (VGICP launches of the stream, stencil launches of the
@@ -1514,7 +1665,7 @@ def phase_online(dev, trajs, host_scans, cfg):
     from mr_slam_torch.datasets import replay, sequence_artifact
     from mr_slam_torch.mapping import costmap, elevation
     from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
-    from mr_slam_torch.runtime import checkpoint, online
+    from mr_slam_torch.runtime import checkpoint, online, solve_graph
     from mr_slam_torch.runtime import observability as obs
 
     ocfg = online_config(cfg)
@@ -1551,12 +1702,14 @@ def phase_online(dev, trajs, host_scans, cfg):
     obs.metrics.counters.clear()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
+    solve_graph.clear()  # the session's first solve of each key is then an eager one
     t = time.perf_counter()
-    with VerifyRecord() as verified:
+    with VerifyRecord() as verified, SolveRecord() as solved:
         n_fed = replay.replay(frames, sess)
         res = sess.result()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    solvers = solve_graph.stats()
     vgicp_launches = hopper_vgicp.launch_count()
     stream_stencil = hopper_stencil.launch_count()
     peak = torch.cuda.max_memory_allocated()
@@ -1565,7 +1718,9 @@ def phase_online(dev, trajs, host_scans, cfg):
     log(f"[online] replay of {n_fed} frames + result() wall {wall:.3f} s; peak device memory "
         f"{peak / 2**20:.1f} MiB; vgicp_accum launches {vgicp_launches}, terrain_stencil "
         f"{stream_stencil}; loop stages {stages[0]} ({spans.get('online.solve', {}).get('count', 0)} "
-        f"solved)")
+        f"solved); solve runners {len(solvers)}: solves {[r['solves'] for r in solvers]}, captures "
+        f"{[r['captures'] for r in solvers]}, replays {[r['replays'] for r in solvers]}, plan "
+        f"widths {[r['width'] for r in solvers]}")
     for r in range(n_robots):
         n_r = sum(f.robot == r for f in frames)
         log(f"[online] robot {r}: add_frame {add_s[r]:.3f} s = {n_r / add_s[r]:.1f} frames/s, "
@@ -1579,6 +1734,7 @@ def phase_online(dev, trajs, host_scans, cfg):
         f"{counters.get('compose.runs', 0):.0f}")
 
     verified.check("phase 7 online session", ocfg.loops.fitness_thresh)
+    solved.check("phase 7 online session")
     runners = log_runners("online", sess)
     if any(r["captures"] < 1 or r["replays"] < 1 for r in runners.values()):
         raise AssertionError(f"a robot's tick replayed no graph: {runners}")
@@ -3090,12 +3246,19 @@ def closure_pgo(dev):
         return float(torch.sqrt(torch.mean(torch.sum((t[:n].cpu() - true_t) ** 2, dim=-1))))
 
     cfg = chordal.PGOConfig(**PGO_FULL)
-    chordal.optimize(g, anchors, chordal.PGOConfig(rot_cg_iters=2, gn_iters=1, pose_cg_iters=2))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    opt = chordal.optimize(g, anchors, cfg)
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
+    walls = []
+    with SolveRecord() as solved:  # the runner's eager solve, its captures, its replays
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt = chordal.optimize(g, anchors, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    t_card = walls[-1]
+    log(f"[closure] the 510-node solve at PGO_FULL through its runner: {walls[0]:.3f} s (eager), "
+        f"{walls[1]:.3f} s (captures), {walls[2]:.3f} s (replays)")
+    solved.check("phase 10 PGO_FULL")
+    counts = solve_counts("phase 10 PGO_FULL", g, anchors, cfg)
     t0 = time.perf_counter()
     ref = reference_solver.solve(g, anchors)
     t_ref = time.perf_counter() - t0
@@ -3108,7 +3271,7 @@ def closure_pgo(dev):
         raise AssertionError("the reference solver did not converge")
     if not ours <= 1.1 * theirs:
         raise AssertionError(f"chordal ATE {ours:.4f} > 1.1 x reference {theirs:.4f}")
-    return dict(ate=ours, ref_ate=theirs, s=t_card, ref_s=t_ref)
+    return dict(ate=ours, ref_ate=theirs, s=t_card, ref_s=t_ref, counts=counts)
 
 
 def closure_clique(dev, res, cfg):
@@ -3552,7 +3715,7 @@ def phase_longrun(dev):
     hopper_stencil.reset_launch_count()
     hopper_vgicp.gn_accumulate = spy
     try:
-        with VerifyRecord() as verified:
+        with VerifyRecord() as verified, SolveRecord() as solved:
             res, wall = bench_longrun.timed_run(scans, trajs, cfg, dev)
     finally:
         hopper_vgicp.gn_accumulate = launch
@@ -3571,6 +3734,7 @@ def phase_longrun(dev):
     log(f"[longrun] keyframe ATE per robot (m): {ates}; keyframes {out['keyframes']}; loops "
         f"{out['loops']} ({inter} inter-robot); JAX reference {JAX_REF_LONGRUN}")
     verified.check("phase 12 long run", cfg.loops.fitness_thresh)
+    solved.check("phase 12 long run")
 
     # bit-identity: robot 0's front-end again, against the gated run's
     origin0 = se3.index(trajs[0], 0).to(dev)

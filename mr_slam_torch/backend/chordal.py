@@ -8,10 +8,18 @@ with Jacobi-preconditioned CG, Cauchy IRLS weights on loop edges.
 Every H x product is a gather over edge endpoints, a per-edge Jacobian
 contraction and a scatter-add back to nodes through one
 `segment.ScatterPlan` per solve (the edge set is fixed during a solve):
-a fixed summation order, so reruns on the card are bit-identical. The
-reference's `lax.scan`s are Python loops: with the
-default budget (60 + 12 x 40 CG steps, ~540 in all, each ~20 small
-kernels) a solve is launch-bound on the card.
+a fixed summation order, so reruns on the card are bit-identical.
+
+The reference compiles the whole solve (`@jax.jit optimize`, its CG
+loops `lax.scan`s). Here the solve is cut into stages on the same
+operations in the same order: `rotation_cg` (stage 1 up to the
+projection), `so3.project`, then `gn_iters` x `gn_step`, then
+`so3.project`. Without `group`, `optimize` runs them through
+`runtime/solve_graph`'s runner, which replays the CG stage and each GN
+step from CUDA graphs on the card (a default solve is 60 + 12 x 40 CG
+steps, ~20,000 small kernels: launch-bound when run op by op) and keeps
+the projections' SVDs eager between them. `_optimize_eager` is the
+solve op by op, the oracle the runner is held to bit for bit.
 
 With `group` (a `torch.distributed` process group) the edge arrays are
 this rank's block of the graph's edges and the node arrays are
@@ -79,6 +87,18 @@ def rotation_init(
     X in R^{N x 3 x 3} by CG on the normal equations, then project to
     SO(3). `anchor_weight` is softer than the pose stage's (a 1e6 anchor
     row stalls CG from a warm start). `group`: see the module docstring."""
+    return so3.project(rotation_cg(g, anchors, iters, anchor_weight, scatter, group))
+
+
+def rotation_cg(
+    g: FactorGraph,
+    anchors: torch.Tensor,
+    iters: int = 60,
+    anchor_weight: float = 1e3,
+    scatter: segment.ScatterPlan | None = None,
+    group=None,
+) -> torch.Tensor:
+    """`rotation_init` up to its projection: the CG iterate X (N, 3, 3)."""
     scatter = scatter or scatter_plan(g)
     w_rot, _ = _edge_weights(g)
     anchor_R = g.poses.R
@@ -101,7 +121,7 @@ def rotation_init(
         beta = rs_new / torch.clamp(rs, min=1e-12)
         p = r + beta * p
         rs = rs_new
-    return so3.project(X)
+    return X
 
 
 def _rotation_scatter(g: FactorGraph, w: torch.Tensor, X: torch.Tensor,
@@ -200,9 +220,71 @@ def optimize(
 ) -> Pose:
     """Full two-stage chordal optimization. Returns optimized poses
     (invalid nodes keep their input pose). `anchors`: (N,) bool — one
-    per connected component. `group`: the edges are this rank's block
-    and every edge scatter is all-reduced over the group (module
-    docstring); `backend/distributed.optimize` cuts the block."""
+    per connected component. Without `group` the solve runs through the
+    runner of its shapes (`runtime/solve_graph`: CUDA-graph replays on the
+    card), bit-equal to `_optimize_eager`. `group`: the edges are this
+    rank's block and every edge scatter is all-reduced over the group
+    (module docstring), op by op (`_optimize_eager`: a gloo collective
+    cannot be captured); `backend/distributed.optimize` cuts the block."""
+    if group is not None:
+        return _optimize_eager(g, anchors, config, group)
+    from ..runtime import solve_graph
+
+    return solve_graph.solve(g, anchors, config)
+
+
+def gn_step(R: torch.Tensor, t: torch.Tensor, g: FactorGraph, aw: torch.Tensor,
+            config: PGOConfig, scatter: segment.ScatterPlan):
+    """One Gauss-Newton step of the second stage from (R, t), the loop
+    body of `_optimize_eager` without a process group: (R, t) after the
+    step. `aw` (N,): the anchors' prior weights (`anchors *
+    config.anchor_weight`)."""
+    N = g.node_capacity
+    anchor_R0, anchor_t0 = g.poses.R, g.poses.t
+    r, J = _residuals_and_jac(R, t, g)
+    row_w = _edge_block_weight(g, r, config.robust_delta)
+
+    def Hx(x):
+        return _jtwj(J, row_w, x, g, scatter) + (aw[:, None] + config.damping) * x
+
+    b = -_jtw(J, row_w * r, scatter)
+    # anchor residual pull (keep anchors at their initial pose)
+    phi_anchor = so3.log(R @ anchor_R0.transpose(-1, -2))
+    b = b - aw[:, None] * torch.cat([phi_anchor, t - anchor_t0], dim=1)
+    diag = _hessian_diag(J, row_w, scatter) + aw[:, None] + config.damping
+    Minv = 1.0 / torch.clamp(diag, min=1e-8)
+
+    x = torch.zeros((N, 6), device=t.device)
+    r_ = b
+    z = Minv * r_
+    p = z
+    rz = torch.sum(r_ * z)
+    for _ in range(config.pose_cg_iters):
+        Ap = Hx(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-12)
+        x = x + alpha * p
+        r_ = r_ - alpha * Ap
+        z = Minv * r_
+        rz_new = torch.sum(r_ * z)
+        beta = rz_new / torch.clamp(rz, min=1e-12)
+        p = z + beta * p
+        rz = rz_new
+    R_new = so3.exp(x[:, 0:3]) @ R
+    t_new = t + x[:, 3:6]
+    R = torch.where(g.node_valid[:, None, None], R_new, R)
+    t = torch.where(g.node_valid[:, None], t_new, t)
+    return R, t
+
+
+def _optimize_eager(
+    g: FactorGraph,
+    anchors: torch.Tensor,
+    config: PGOConfig = PGOConfig(),
+    group=None,
+) -> Pose:
+    """`optimize` op by op: the solve with `group`, and without it the
+    oracle that the runner's solve equals bit for bit (the tests and
+    `chip_smoke.py` call it; no path of the card does without `group`)."""
     N = g.node_capacity
     scatter = scatter_plan(g)
     R = rotation_init(g, anchors, config.rot_cg_iters, scatter=scatter, group=group)

@@ -59,22 +59,31 @@ class ScatterPlan:
     weights are zero), so leaving them out changes at most the sign of
     a zero. `padded` defaults to "on the card"; the CPU tests set it to
     run the card's algorithm here. Building a padded plan reads the
-    index on the host once."""
+    index on the host once. Its width is the largest count rounded up to
+    a power of two, at least 4: the gather-sum adds a row's sources in
+    order and the zero row's columns after them leave the sum's bits as
+    they are (checked on the card, `tests/test_torch_solve_graph.py`),
+    and plans of a growing graph keep one shape for longer. `slots`: a
+    plan's (n, width) table built before (a runner's buffer, which it
+    rewrites for each solve): the plan reads it and builds none."""
 
     def __init__(self, index: torch.Tensor, n: int, keep: torch.Tensor | None = None,
-                 padded: bool | None = None):
+                 padded: bool | None = None, slots: torch.Tensor | None = None):
         self.index = index
         self.n = n
         self.padded = index.device.type == "cuda" if padded is None else padded
         self._pad: dict = {}
         if not self.padded:
             return
+        if slots is not None:
+            self.slots = slots
+            return
         idx = index.cpu().numpy()
         m = len(idx)
         src = np.arange(m) if keep is None else np.flatnonzero(keep.cpu().numpy())
         order = src[np.argsort(idx[src], kind="stable")]
         counts = np.bincount(idx[src], minlength=n)
-        width = max(int(counts.max(initial=0)), 1)
+        width = max(4, 1 << (int(counts.max(initial=0)) - 1).bit_length())
         rank = np.arange(len(order)) - (np.cumsum(counts) - counts)[idx[order]]
         slots = np.full((n, width), m, np.int64)  # m -> the zero row
         slots[idx[order], rank] = order

@@ -46,8 +46,9 @@ card. On the CPU the same segments run eagerly, in the same order, on
 the same buffers. A capture launches nothing, so the VGICP kernel's
 wrapper does not count the launches it records; each replay adds them
 (`hopper_vgicp.add_launches`), and the counts stay the launches the card
-ran. Loop verification's chunks run on the same `Segments`
-(`runtime/verify_graph.py`).
+ran. Loop verification's chunks (`runtime/verify_graph.py`) and the
+chordal solve's stages (`runtime/solve_graph.py`) run on the same
+`Segments`.
 
 `scan2map` and `lio` run a stacked sequence through one runner (the
 batch path, `pipeline.run_frontend`); `OnlineSlam.add_frame` keeps one
