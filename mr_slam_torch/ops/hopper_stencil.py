@@ -46,12 +46,28 @@ WINDOW = 5
 _DET_FLOOR = float(np.float32(1e-9))
 
 _launches = 0
+_recorded = 0
 
 
 def launch_count() -> int:
-    """Kernel launches (one per `terrain_features` call on a CUDA
-    tensor) since the last `reset_launch_count`."""
+    """Kernel launches (one per `terrain_features` call on a CUDA tensor
+    outside a CUDA-graph capture, plus those `add_launches` adds) since
+    the last `reset_launch_count`."""
     return _launches
+
+
+def recorded_count() -> int:
+    """Calls made while their stream was capturing a CUDA graph, since
+    the process started: a capture records the launch and runs nothing,
+    so `launch_count` leaves them out."""
+    return _recorded
+
+
+def add_launches(n: int) -> None:
+    """Count launches the wrapper did not make: a CUDA graph's replay
+    runs the launches its capture recorded (`runtime/frame_graph.Segments`)."""
+    global _launches
+    _launches += n
 
 
 def reset_launch_count() -> None:
@@ -239,7 +255,7 @@ def terrain_features(
 
     CPU tensors run `terrain_features_plain`; CUDA tensors launch the
     kernel (raising on any fault); other devices raise."""
-    global _launches
+    global _launches, _recorded
     _check_args(height, valid, resolution)
     crit = dict(slope_crit=slope_crit, rough_crit=rough_crit, step_crit=step_crit)
     if height.device.type == "cpu":
@@ -263,11 +279,16 @@ def terrain_features(
             _inv(slope_crit), _inv(rough_crit), _inv(step_crit), out.data_ptr())
     if dev.index == torch.cuda.current_device():
         err = _lib().terrain_stencil_launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        capturing = torch.cuda.is_current_stream_capturing()
     else:
         with torch.cuda.device(dev):
             err = _lib().terrain_stencil_launch(*args,
                                                 torch._C._cuda_getCurrentRawStream(dev.index))
+            capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"terrain_stencil launch failed: CUDA error {err}")
-    _launches += 1
+    if capturing:  # recorded into a graph: each replay launches it
+        _recorded += 1
+    else:
+        _launches += 1
     return out[0], out[1], out[2], out[3]

@@ -10,17 +10,27 @@ static). The VGICP accumulation is the Hopper kernel
 transformed) dispatches to it, and every inner step of `_vgicp_direct1`
 launches it once on a CUDA tensor with the pose applied inside.
 
+The public entry points (`vgicp`, `point_to_plane_icp`, `loam_icp`,
+`point_to_point_icp`, `gicp`, `register_pair`), each a jitted program in
+the reference, run through a runner of their key
+(`runtime/register_graph`: CUDA-graph replays on the card), bit-equal to
+their eager bodies `_<name>_eager`, which stay as the oracle. Each eager
+body is a `*_raw` body (the GN steps, the pose's rotation not yet
+projected onto SO(3), whose SVD syncs the host on the card), then
+`se3.normalize`; a caller that runs inside a CUDA graph of its own
+(loop verification, the odometry, the LIO update, the feature runner)
+calls the raw or eager bodies, as a capture cannot hold another.
+
 Ported: `RegistrationResult`, `_gn_update`, `_uncenter`, `_select_best`,
 `_gn_terms_from_rows`, `_vgicp_direct1` (batched over a leading B; and
-`_vgicp_direct1_raw`, its GN steps without the projection and fitness),
-`vgicp` (batched; direct1 without source covariances runs the kernel,
-every other case the general matrix path), `point_to_plane_icp` (and
-`point_to_plane_icp_raw`, the same GN steps without the final SO(3)
-projection and fitness),
-`loam_icp` (with `pooled_moments`, shared with the LIO update; the
-reference's `so3_hat` is `so3.hat`), `point_to_point_icp`,
-`_regularized_covs`, `gicp`, `fitness` and `register_pair`. The
-reference's `_gn_terms_direct1` is the kernel's hash mode
+`_vgicp_direct1_raw`), `vgicp` (batched; direct1 without source
+covariances runs the kernel, every other case the general matrix path,
+`_vgicp_general` / `_vgicp_general_raw`), `point_to_plane_icp` (and
+`point_to_plane_icp_raw`), `loam_icp` (and `loam_icp_raw`, with
+`pooled_moments`, shared with the LIO update; the reference's `so3_hat`
+is `so3.hat`), `point_to_point_icp`, `_regularized_covs`, `gicp` (both
+on `_icp_loop_raw`), `fitness` and `register_pair`. The reference's
+`_gn_terms_direct1` is the kernel's hash mode
 (`hopper_vgicp.gn_accumulate` without `slot=`).
 """
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..devconst import const
 from ..geometry import se3, so3
 from ..geometry.se3 import Pose
 from . import hopper_vgicp, linalg3, voxel_grid
@@ -125,15 +136,43 @@ def vgicp(
     general path, which matches each point to its nearest valid cell
     among the `neighbors` offsets. A `schedule` applies to the fused
     path only: with source covariances or other neighbours it raises
-    (the reference ignores it there)."""
-    if source_covs is None and neighbors == "direct1":
+    (the reference ignores it there). Runs through the runner of its key
+    (`runtime/register_graph`), bit-equal to `_vgicp_eager`."""
+    from ..runtime import register_graph
+
+    return register_graph.vgicp(source, target, init, source_covs, iters=iters,
+                                max_corr_dist=max_corr_dist, damping=damping, tol=tol,
+                                neighbors=neighbors, schedule=schedule)
+
+
+def _direct1(source_covs: torch.Tensor | None, neighbors: str, schedule) -> bool:
+    """Whether `vgicp` takes the fused direct1 path; a `schedule` applies
+    to that path only."""
+    direct1 = source_covs is None and neighbors == "direct1"
+    if schedule is not None and not direct1:
+        raise NotImplementedError(
+            "schedule applies to direct1 VGICP without source covariances only")
+    return direct1
+
+
+def _vgicp_eager(
+    source: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    source_covs: torch.Tensor | None = None,
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+    neighbors: str = "direct1",
+    schedule: tuple | None = None,
+) -> RegistrationResult:
+    """`vgicp` op by op: the oracle of its runner."""
+    if _direct1(source_covs, neighbors, schedule):
         return _vgicp_direct1(
             source, target, init, iters=iters, max_corr_dist=max_corr_dist,
             damping=damping, tol=tol, schedule=schedule,
         )
-    if schedule is not None:
-        raise NotImplementedError(
-            "schedule applies to direct1 VGICP without source covariances only")
     return _vgicp_general(source, target, init, source_covs, iters=iters,
                           max_corr_dist=max_corr_dist, damping=damping, tol=tol,
                           neighbors=neighbors)
@@ -157,7 +196,29 @@ def _vgicp_general(
     tol: float,
     neighbors: str,
 ) -> RegistrationResult:
-    """The general matrix path of `vgicp`, batched over a leading B."""
+    """The general matrix path of `vgicp`, batched over a leading B:
+    `_vgicp_general_raw`, then `se3.normalize` of the pose, with the
+    direct27 `fitness` at the unprojected pose, as the reference scores
+    it."""
+    res = _vgicp_general_raw(source, target, init, source_covs, iters, max_corr_dist, damping,
+                             tol, neighbors)
+    return res._replace(pose=se3.normalize(res.pose),
+                        fitness=fitness(source, target, res.pose, max_range=1.0))
+
+
+def _vgicp_general_raw(
+    source: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    source_covs: torch.Tensor | None,
+    iters: int,
+    max_corr_dist: float,
+    damping: float,
+    tol: float,
+    neighbors: str,
+) -> RegistrationResult:
+    """`_vgicp_general`'s GN steps: the pose's rotation not yet projected
+    onto SO(3), no fitness scored (`fitness` is None)."""
     max_corr2 = _f32_square(max_corr_dist)
     xyz = source.xyz
     eye3 = torch.eye(3, dtype=xyz.dtype, device=xyz.device)
@@ -185,11 +246,8 @@ def _vgicp_general(
         n_in = torch.sum(w, dim=-1)
         cost = torch.sum(torch.einsum("...ni,...nij,...nj->...n", r, W, r) * w, dim=-1) \
             / torch.clamp(n_in, min=1.0)
-    fit = fitness(source, target, pose, max_range=1.0)
-    return RegistrationResult(
-        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
-        converged=last_dx < tol,
-    )
+    return RegistrationResult(pose=pose, num_inliers=n_in, error=cost, fitness=None,
+                              converged=last_dx < tol)
 
 
 def _default_schedule(iters: int, inner: int) -> tuple:
@@ -300,9 +358,32 @@ def point_to_plane_icp(
     planes pooled from the matched cell and its neighbour cells, with a
     nearest-single-cell fallback. Association rounds x `inner` GN steps
     against the cached planes; `schedule` as in `_vgicp_direct1`.
-    Single cloud: source (N, 3), target (H, 16), init ().
-    `point_to_plane_icp_raw`, then `se3.normalize` of the pose, with
-    `fitness` scored at the unprojected pose, as the reference scores it."""
+    Single cloud: source (N, 3), target (H, 16), init (). Runs through
+    the runner of its key (`runtime/register_graph`), bit-equal to
+    `_point_to_plane_icp_eager`."""
+    from ..runtime import register_graph
+
+    return register_graph.point_to_plane_icp(source, target, init, iters=iters,
+                                             max_corr_dist=max_corr_dist, damping=damping,
+                                             tol=tol, neighbors=neighbors, inner=inner,
+                                             schedule=schedule)
+
+
+def _point_to_plane_icp_eager(
+    source: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+    neighbors: str = "direct7",
+    inner: int = 4,
+    schedule: tuple | None = None,
+) -> RegistrationResult:
+    """`point_to_plane_icp` op by op: `point_to_plane_icp_raw`, then
+    `se3.normalize` of the pose, with `fitness` scored at the unprojected
+    pose, as the reference scores it."""
     res = point_to_plane_icp_raw(source, target, init, iters, max_corr_dist, damping, tol,
                                  neighbors, inner, schedule)
     return res._replace(pose=se3.normalize(res.pose),
@@ -405,7 +486,45 @@ def loam_icp(
     (point-to-plane, LidarPlaneFactor) and corner points against lines
     (the perpendicular offset from the pooled cells' dominant axis,
     LidarEdgeFactor), both families in one 6x6 GN system per iteration,
-    re-associated every iteration. Single cloud."""
+    re-associated every iteration. Single cloud. Runs through the runner
+    of its key (`runtime/register_graph`), bit-equal to
+    `_loam_icp_eager`."""
+    from ..runtime import register_graph
+
+    return register_graph.loam_icp(corners, surfs, target, init, iters=iters,
+                                   max_corr_dist=max_corr_dist, damping=damping, tol=tol)
+
+
+def _loam_icp_eager(
+    corners: PointCloud,
+    surfs: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    iters: int = 10,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+) -> RegistrationResult:
+    """`loam_icp` op by op: `loam_icp_raw`, then `se3.normalize` of the
+    pose, with the surfs' `fitness` at the unprojected pose, as the
+    reference scores it."""
+    res = loam_icp_raw(corners, surfs, target, init, iters, max_corr_dist, damping, tol)
+    return res._replace(pose=se3.normalize(res.pose),
+                        fitness=fitness(surfs, target, res.pose, max_range=1.0))
+
+
+def loam_icp_raw(
+    corners: PointCloud,
+    surfs: PointCloud,
+    target: voxel_grid.VoxelGrid,
+    init: Pose,
+    iters: int = 10,
+    max_corr_dist: float = 1.0,
+    damping: float = 1e-6,
+    tol: float = 1e-4,
+) -> RegistrationResult:
+    """`loam_icp`'s GN steps: the pose's rotation not yet projected onto
+    SO(3), no fitness scored (`fitness` is None)."""
     max_corr2 = _f32_square(max_corr_dist)
     eye3 = torch.eye(3, dtype=corners.xyz.dtype, device=corners.xyz.device)
     pose = init
@@ -444,11 +563,8 @@ def loam_icp(
         n_in = torch.sum(w_s) + torch.sum(w_c)
         cost = (torch.sum(r_s * r_s * w_s) + torch.sum(torch.sum(r_c * r_c, dim=-1) * w_c)) \
             / torch.clamp(n_in, min=1.0)
-    fit = fitness(surfs, target, pose, max_range=1.0)
-    return RegistrationResult(
-        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=fit,
-        converged=last_dx < tol,
-    )
+    return RegistrationResult(pose=pose, num_inliers=n_in, error=cost, fitness=None,
+                              converged=last_dx < tol)
 
 
 def _nearest(tp: torch.Tensor, target: PointCloud):
@@ -462,12 +578,13 @@ def _nearest(tp: torch.Tensor, target: PointCloud):
     return d2[..., 0], j, q
 
 
-def _icp_loop(source: PointCloud, init: Pose, iters: int, damping: float, tol: float,
-              associate) -> RegistrationResult:
+def _icp_loop_raw(source: PointCloud, init: Pose, iters: int, damping: float, tol: float,
+                  associate) -> RegistrationResult:
     """GN on the residual r = (R p + t) - q with J = [I | -hat(R p + t)]
     and per-point weights M: `associate(tp, pose)` returns (q, M
     (..., N, 3, 3) or None for the identity, w (..., N)). The cost
-    r^T M r is both the error and the fitness of the result."""
+    r^T M r is both the error and the fitness of the result. The pose's
+    rotation is not yet projected onto SO(3) (`_projected` does)."""
     pose = init
     for _ in range(iters):
         tp = se3.apply(pose, source.xyz)
@@ -484,10 +601,13 @@ def _icp_loop(source: PointCloud, init: Pose, iters: int, damping: float, tol: f
         rr = torch.sum(r * r, dim=-1) if M is None else \
             torch.einsum("...na,...nab,...nb->...n", r, M, r)
         cost = torch.sum(rr * w, dim=-1) / torch.clamp(n_in, min=1.0)
-    return RegistrationResult(
-        pose=se3.normalize(pose), num_inliers=n_in, error=cost, fitness=cost,
-        converged=last_dx < tol,
-    )
+    return RegistrationResult(pose=pose, num_inliers=n_in, error=cost, fitness=cost,
+                              converged=last_dx < tol)
+
+
+def _projected(res: RegistrationResult) -> RegistrationResult:
+    """A raw result with its pose's rotation projected onto SO(3)."""
+    return res._replace(pose=se3.normalize(res.pose))
 
 
 def point_to_point_icp(
@@ -502,14 +622,35 @@ def point_to_point_icp(
     """Classic point-to-point ICP (the reference's PCL_ICP option):
     brute-force nearest neighbours (`pointcloud.knn`), residual = the
     matched offset, GN on se(3). Any leading batch of clouds; meant for
-    loop-verification sizes (<= ~8k points a side)."""
+    loop-verification sizes (<= ~8k points a side). Runs through the
+    runner of its key (`runtime/register_graph`), bit-equal to
+    `_point_to_point_icp_eager`."""
+    from ..runtime import register_graph
+
+    return register_graph.point_to_point_icp(source, target, init, iters=iters,
+                                             max_corr_dist=max_corr_dist, damping=damping,
+                                             tol=tol)
+
+
+def _point_to_point_icp_eager(source: PointCloud, target: PointCloud, init: Pose,
+                              iters: int = 20, max_corr_dist: float = 1.0,
+                              damping: float = 1e-6, tol: float = 1e-4) -> RegistrationResult:
+    """`point_to_point_icp` op by op."""
+    return _projected(_point_to_point_icp_raw(source, target, init, iters, max_corr_dist,
+                                              damping, tol))
+
+
+def _point_to_point_icp_raw(source: PointCloud, target: PointCloud, init: Pose,
+                            iters: int = 20, max_corr_dist: float = 1.0,
+                            damping: float = 1e-6, tol: float = 1e-4) -> RegistrationResult:
+    """`point_to_point_icp`'s GN steps (`_icp_loop_raw`)."""
     max_corr2 = _f32_square(max_corr_dist)
 
     def associate(tp, pose):
         d2, _, q = _nearest(tp, target)
         return q, None, (source.mask & (d2 < max_corr2)).to(torch.float32)
 
-    return _icp_loop(source, init, iters, damping, tol, associate)
+    return _icp_loop_raw(source, init, iters, damping, tol, associate)
 
 
 def _regularized_covs(pc: PointCloud, k: int = 10):
@@ -522,7 +663,7 @@ def _regularized_covs(pc: PointCloud, k: int = 10):
     _, cov, valid = pointcloud.covariances_knn(pc, k)
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
     _, V = linalg3.eigh3(cov + 1e-9 * eye)
-    snapped = torch.tensor([1e-3, 1.0, 1.0], dtype=cov.dtype, device=cov.device)
+    snapped = const((1e-3, 1.0, 1.0), cov.device, cov.dtype)  # no host copy under capture
     return (V * snapped) @ V.transpose(-1, -2), valid
 
 
@@ -539,7 +680,26 @@ def gicp(
     """Generalized ICP (plane-to-plane; the PCL_GICP / FAST_GICP options):
     cost d^T (C_b + R C_a R^T + 1e-6 I)^-1 d per nearest-neighbour
     correspondence, with `_regularized_covs` on both clouds. Any leading
-    batch of clouds."""
+    batch of clouds. Runs through the runner of its key
+    (`runtime/register_graph`), bit-equal to `_gicp_eager`."""
+    from ..runtime import register_graph
+
+    return register_graph.gicp(source, target, init, iters=iters, max_corr_dist=max_corr_dist,
+                               damping=damping, tol=tol, corr_k=corr_k)
+
+
+def _gicp_eager(source: PointCloud, target: PointCloud, init: Pose, iters: int = 20,
+                max_corr_dist: float = 1.0, damping: float = 1e-6, tol: float = 1e-4,
+                corr_k: int = 10) -> RegistrationResult:
+    """`gicp` op by op."""
+    return _projected(_gicp_raw(source, target, init, iters, max_corr_dist, damping, tol,
+                                corr_k))
+
+
+def _gicp_raw(source: PointCloud, target: PointCloud, init: Pose, iters: int = 20,
+              max_corr_dist: float = 1.0, damping: float = 1e-6, tol: float = 1e-4,
+              corr_k: int = 10) -> RegistrationResult:
+    """`gicp`'s covariances and GN steps (`_icp_loop_raw`)."""
     max_corr2 = _f32_square(max_corr_dist)
     Ca, va = _regularized_covs(source, corr_k)
     Cb, vb = _regularized_covs(target, corr_k)
@@ -555,7 +715,7 @@ def gicp(
         M = torch.linalg.inv_ex(Cbj + Rb @ Ca @ Rb.transpose(-1, -2) + 1e-6 * eye3).inverse
         return q, M, (source.mask & va & vbj & (d2 < max_corr2)).to(torch.float32)
 
-    return _icp_loop(source, init, iters, damping, tol, associate)
+    return _icp_loop_raw(source, init, iters, damping, tol, associate)
 
 
 def fitness(
@@ -612,23 +772,46 @@ def register_pair(
 
     Single clouds (N, 3), a single init. Fitness is scored against a
     permissive min_points=1 grid on every 4th source point (as
-    `loopstage.verify_chunk` scores it)."""
+    `loopstage.verify_chunk` scores it). Runs through the runner of its
+    key (`runtime/register_graph`), bit-equal to `_register_pair_eager`."""
+    if method not in PAIR_METHODS:
+        raise ValueError(f"unknown registration method {method!r}")
+    from ..runtime import register_graph
+
+    return register_graph.register_pair(source, target, init, leaf=leaf, table_size=table_size,
+                                        method=method, iters=iters, max_corr_dist=max_corr_dist)
+
+
+PAIR_METHODS = ("icp", "gicp", "vgicp", "point_to_plane")
+
+
+def _register_pair_eager(
+    source: PointCloud,
+    target: PointCloud,
+    init: Pose,
+    leaf: float = 0.5,
+    table_size: int = 1 << 15,
+    method: str = "vgicp",
+    iters: int = 20,
+    max_corr_dist: float = 1.0,
+) -> RegistrationResult:
+    """`register_pair` op by op: the oracle of its runner."""
     if method == "icp":
-        result = point_to_point_icp(source, target, init, iters=iters,
-                                    max_corr_dist=max_corr_dist)
+        result = _point_to_point_icp_eager(source, target, init, iters=iters,
+                                           max_corr_dist=max_corr_dist)
     elif method == "gicp":
-        result = gicp(source, target, init, iters=iters, max_corr_dist=max_corr_dist)
+        result = _gicp_eager(source, target, init, iters=iters, max_corr_dist=max_corr_dist)
     elif method == "vgicp":
         grid = voxel_grid.build(target, leaf, table_size, min_points=3, regularize="plane")
-        res = vgicp(PointCloud(source.xyz[None], source.mask[None]),
-                    voxel_grid.VoxelGrid(grid.packed[None], grid.leaf),
-                    Pose(init.R[None], init.t[None]), iters=iters,
-                    max_corr_dist=max_corr_dist)
+        res = _vgicp_eager(PointCloud(source.xyz[None], source.mask[None]),
+                           voxel_grid.VoxelGrid(grid.packed[None], grid.leaf),
+                           Pose(init.R[None], init.t[None]), iters=iters,
+                           max_corr_dist=max_corr_dist)
         result = RegistrationResult(se3.index(res.pose, 0), *(x[0] for x in res[1:]))
     elif method == "point_to_plane":
         grid = voxel_grid.build(target, leaf, table_size, min_points=3, regularize="plane")
-        result = point_to_plane_icp(source, grid, init, iters=iters,
-                                    max_corr_dist=max_corr_dist)
+        result = _point_to_plane_icp_eager(source, grid, init, iters=iters,
+                                           max_corr_dist=max_corr_dist)
     else:
         raise ValueError(f"unknown registration method {method!r}")
     fit_grid = voxel_grid.build(target, leaf, table_size, min_points=1)

@@ -43,12 +43,27 @@ memory pool and one stream. A replay launches the same kernels on the
 same inputs as the eager step, so the results are the eager card path's
 bit for bit. A failed capture raises: there is no eager fallback on the
 card. On the CPU the same segments run eagerly, in the same order, on
-the same buffers. A capture launches nothing, so the VGICP kernel's
-wrapper does not count the launches it records; each replay adds them
-(`hopper_vgicp.add_launches`), and the counts stay the launches the card
-ran. Loop verification's chunks (`runtime/verify_graph.py`) and the
-chordal solve's stages (`runtime/solve_graph.py`) run on the same
-`Segments`.
+the same buffers. A capture launches nothing, so neither kernel's
+wrapper (VGICP, the terrain stencil) counts the launches it records;
+each replay adds them (`hopper_vgicp.add_launches`,
+`hopper_stencil.add_launches`), and the counts stay the launches the
+card ran. Loop verification's chunks (`runtime/verify_graph.py`), the
+chordal solve's stages (`runtime/solve_graph.py`) and the registration
+entry points (`runtime/register_graph.py`) run on the same `Segments`,
+and keep their runners in a `RunnerCache`.
+
+`Loam` is the A-LOAM feature front-end's runner
+(`feature_odometry.run`, the reference's jitted `step` scanned over the
+frames, `mr_slam_tpu/frontend/feature_odometry.py:28-95`):
+
+    first     frame 0: the prediction is the pose (no registration)
+    coarse    features.extract, the prediction, the coarse point-to-plane
+              ICP of the surfs (3 iterations, direct27)
+              [so3.project, eager]
+    loam      loam_icp_raw (its fitness, which `step` never reads, left
+              out as XLA leaves it out)
+              [se3.normalize, eager]
+    maintain  both downsamples, inserts and decays, and the commit
 
 `scan2map` and `lio` run a stacked sequence through one runner (the
 batch path, `pipeline.run_frontend`); `OnlineSlam.add_frame` keeps one
@@ -64,13 +79,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..frontend import feature_odometry, odometry
 from ..frontend import keyframes as kf
-from ..frontend import odometry
 from ..geometry import so3
 from ..geometry.se3 import Pose
-from ..ops import hopper_vgicp
+from ..ops import features as feat
+from ..ops import hopper_stencil, hopper_vgicp
 from ..ops import pointcloud as pcl
-from ..ops import voxel_grid
+from ..ops import registration, voxel_grid
 from ..parallel import store as mstore_lib
 
 
@@ -108,6 +124,7 @@ class Segments:
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0
+        self.held_bytes = 0  # the pool's bytes after the last capture
         if self.capture:
             self.stream = _side_stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
@@ -137,11 +154,13 @@ class Segments:
             return fn(bufs)
         if name not in self._graphs:
             self._graphs[name] = self._capture(name, fn, bufs)
-        graph, out, launches = self._graphs[name]
+        graph, out, (vgicp, stencil) = self._graphs[name]
         graph.replay()
         self.replays += 1
-        if launches:
-            hopper_vgicp.add_launches(launches)
+        if vgicp:
+            hopper_vgicp.add_launches(vgicp)
+        if stencil:
+            hopper_stencil.add_launches(stencil)
         return out
 
     def drop(self, name: str) -> bool:
@@ -157,7 +176,8 @@ class Segments:
         t = time.perf_counter()
         if name not in self._eager:
             fn(_clone(bufs))
-        recorded = collections.Counter(hopper_vgicp.recorded_by_batch())
+        vgicp = collections.Counter(hopper_vgicp.recorded_by_batch())
+        stencil = hopper_stencil.recorded_count()
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
@@ -169,7 +189,10 @@ class Segments:
         graph.capture_end()
         self.captures += 1
         self.capture_s += time.perf_counter() - t
-        return graph, out, dict(collections.Counter(hopper_vgicp.recorded_by_batch()) - recorded)
+        self.held_bytes = self.pool_bytes()  # replays allocate nothing more
+        launches = (dict(collections.Counter(hopper_vgicp.recorded_by_batch()) - vgicp),
+                    hopper_stencil.recorded_count() - stencil)
+        return graph, out, launches
 
     def pool_bytes(self) -> int:
         """Device memory the graphs' pool holds (its peak: a pool keeps
@@ -192,13 +215,73 @@ class Segments:
         return stats
 
 
+class RunnerCache:
+    """Runners by key, at most `max_runners`, the least recently used
+    dropped first (its graphs released once their last replay has run).
+    With `pool_budget(device) -> bytes`, also dropped while the graph
+    pools that the kept runners on a device hold sum to more than its
+    budget; the most recently used runner is always kept. A runner has
+    `stats()` and `close()`, and with a budget `device` and `held_bytes()`
+    (its pool's bytes, known once it has captured)."""
+
+    def __init__(self, max_runners: int,
+                 pool_budget: Callable[[torch.device], int] | None = None):
+        self.max_runners = max_runners
+        self.pool_budget = pool_budget
+        self._runners: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key, make: Callable[[], object]):
+        """The runner of `key`, made by `make()` if there is none; it
+        becomes the most recently used."""
+        runner = self._runners.pop(key, None)
+        if runner is None:
+            runner = make()
+        self._runners[key] = runner
+        self.trim()
+        return runner
+
+    def trim(self) -> None:
+        """Drop the least recently used runners over the limits (call it
+        again after a runner's call: a capture grows its pool)."""
+        while len(self._runners) > self.max_runners:
+            self._runners.popitem(last=False)[1].close()
+        if self.pool_budget is None:
+            return
+        held = collections.Counter()
+        for r in self._runners.values():
+            held[r.device] += r.held_bytes()
+        drop = []
+        for key in list(self._runners)[:-1]:
+            dev, n = self._runners[key].device, self._runners[key].held_bytes()
+            if held[dev] and held[dev] > self.pool_budget(dev):
+                held[dev] -= n
+                drop.append(key)
+        for key in drop:
+            self._runners.pop(key).close()
+        if drop:  # a dropped runner's pool stays reserved until then
+            torch.cuda.empty_cache()
+
+    def values(self) -> list:
+        return list(self._runners.values())
+
+    def stats(self, describe: Callable[[object], dict] = lambda key: {}) -> list[dict]:
+        """Each runner's `stats()` with `describe(key)`, the least
+        recently used first."""
+        return [dict(r.stats(), **describe(k)) for k, r in self._runners.items()]
+
+    def clear(self) -> None:
+        """Drop every runner (their graphs and buffers)."""
+        while self._runners:
+            self._runners.popitem(last=False)[1].close()
+
+
 class Run(NamedTuple):
     poses: Pose                      # (T,) odometry poses
     store: kf.KeyframeStore | None   # keyframes (None without a gate)
     added: torch.Tensor | None       # (T,) bool, a keyframe added at frame i
     state: object                    # the final OdometryState / LIO state
-    error: torch.Tensor | None       # (T,) scan2map's registration cost (0 at frame 0)
-    inliers: torch.Tensor | None     # (T,) scan2map's registration inliers
+    error: torch.Tensor | None       # (T,) scan2map's / LOAM's registration cost (0 at frame 0)
+    inliers: torch.Tensor | None     # (T,) their registration inliers
     stats: dict                      # captures, replays, capture_s, pool_bytes
 
 
@@ -594,3 +677,124 @@ def lio(scans: pcl.PointCloud, imu: tuple, config, origin: Pose, extrinsic: Pose
                 added[i].copy_(out["added"])
     return Run(poses=Pose(out_R, out_t), store=None if store is None else runner.gate.store(runner.b),
                added=added, state=runner.state(), error=None, inliers=None, stats=runner.close())
+
+
+class Loam:
+    """The A-LOAM feature front-end's runner: `feature_odometry.step` with
+    `config` from `state`, a frame a `step`, on (R, A, 3) / (R, A) range
+    images."""
+
+    def __init__(self, state: odometry.OdometryState, config: odometry.OdometryConfig,
+                 image_shape: tuple):
+        dev = state.pose.t.device
+        self.segs = Segments(dev)
+        self.config, self.frame, self.steps = config, state.frame, 0
+        self.leaf, self.coarse_leaf = state.grid.leaf, state.coarse_grid.leaf
+        R, t = state.pose
+        self.b = dict(xyz=torch.empty((*image_shape, 3), device=dev),
+                      hit=torch.empty(image_shape, dtype=torch.bool, device=dev),
+                      R=R.clone(), t=t.clone(), prev_R=state.prev_pose.R.clone(),
+                      prev_t=state.prev_pose.t.clone(), new_R=R.clone(), new_t=t.clone(),
+                      coarse_R=R.clone(), grid=state.grid.packed.clone(),
+                      coarse=state.coarse_grid.packed.clone())
+
+    def state(self) -> odometry.OdometryState:
+        """The state on the buffers (views: the next step rewrites them)."""
+        b = self.b
+        return odometry.OdometryState(
+            grid=voxel_grid.VoxelGrid(b["grid"], self.leaf),
+            coarse_grid=voxel_grid.VoxelGrid(b["coarse"], self.coarse_leaf),
+            pose=Pose(b["R"], b["t"]), prev_pose=Pose(b["prev_R"], b["prev_t"]),
+            frame=self.frame)
+
+    def _predict(self, b) -> Pose:
+        return feature_odometry.predict(Pose(b["R"], b["t"]), Pose(b["prev_R"], b["prev_t"]))
+
+    def _first(self, b):  # frame 0: no registration, the pose is the prediction
+        pred = self._predict(b)
+        b["new_R"].copy_(pred.R)
+        b["new_t"].copy_(pred.t)
+        return {}
+
+    def _coarse(self, b):
+        f = feat.extract(b["xyz"], b["hit"])
+        res = registration.point_to_plane_icp_raw(
+            f.surfs, voxel_grid.VoxelGrid(b["coarse"], self.coarse_leaf), self._predict(b),
+            **feature_odometry.coarse_kw(self.config))
+        return dict(corners=f.corners.xyz, corners_mask=f.corners.mask, surfs=f.surfs.xyz,
+                    surfs_mask=f.surfs.mask, coarse_raw=res.pose.R, coarse_t=res.pose.t)
+
+    def _loam(self, b):
+        res = registration.loam_icp_raw(
+            pcl.PointCloud(b["corners"], b["corners_mask"]),
+            pcl.PointCloud(b["surfs"], b["surfs_mask"]), voxel_grid.VoxelGrid(b["grid"], self.leaf),
+            Pose(b["coarse_R"], b["coarse_t"]), **feature_odometry.loam_kw(self.config))
+        b["new_t"].copy_(res.pose.t)
+        return dict(loam_raw=res.pose.R, error=res.error, inliers=res.num_inliers)
+
+    def _maintain(self, b):
+        grid, coarse = feature_odometry.maintain(
+            voxel_grid.VoxelGrid(b["grid"], self.leaf),
+            voxel_grid.VoxelGrid(b["coarse"], self.coarse_leaf), b["xyz"], b["hit"],
+            Pose(b["new_R"], b["new_t"]), self.config)
+        b["grid"].copy_(grid.packed)
+        b["coarse"].copy_(coarse.packed)
+        b["prev_R"].copy_(b["R"])
+        b["prev_t"].copy_(b["t"])
+        b["R"].copy_(b["new_R"])
+        b["t"].copy_(b["new_t"])
+        return {}
+
+    def step(self, xyz: torch.Tensor, hit: torch.Tensor) -> dict:
+        """One frame of `feature_odometry.step`. Returns `error` and
+        `inliers` from the state's frame 1 on (on the card the graphs'
+        tensors, which the next step rewrites)."""
+        b, segs = self.b, self.segs
+        run = segs.eager if self.steps == 0 else segs.run
+        out = {}
+        with segs.on_stream():
+            b["xyz"].copy_(xyz, non_blocking=True)
+            b["hit"].copy_(hit, non_blocking=True)
+            if self.frame == 0:
+                run("first", self._first, b)
+            else:
+                b.update(run("coarse", self._coarse, b))
+                b["coarse_R"].copy_(so3.project(b["coarse_raw"]))
+                b.update(run("loam", self._loam, b))
+                b["new_R"].copy_(so3.project(b["loam_raw"]))
+                out.update(error=b["error"], inliers=b["inliers"])
+            run("maintain", self._maintain, b)
+        self.frame += 1
+        self.steps += 1
+        return out
+
+    def close(self) -> dict:
+        """Release the graphs once their last replay has run; returns the
+        runner's counts: frames, captures, replays, capture seconds and
+        the pool's bytes."""
+        return self.segs.close(self.steps)
+
+
+def loam(xyz_images: torch.Tensor, hits: torch.Tensor, config: odometry.OdometryConfig,
+         origin: Pose | None = None) -> Run:
+    """`feature_odometry.step` over (T, R, A, 3) / (T, R, A) range images
+    on their device, from `odometry.init(config, origin)`, through one
+    `Loam` runner. Equal bit for bit to the loop of `step` on the same
+    device (`feature_odometry._run_eager`)."""
+    dev = xyz_images.device
+    T = xyz_images.shape[0]
+    runner = Loam(odometry.init(config, origin, device=dev), config, hits.shape[1:])
+    out_R = torch.empty((T, 3, 3), device=dev)
+    out_t = torch.empty((T, 3), device=dev)
+    err = torch.zeros((T,), device=dev)
+    inl = torch.zeros((T,), device=dev)
+    with runner.segs.on_stream():
+        for i in range(T):
+            out = runner.step(xyz_images[i], hits[i])
+            if out:
+                err[i].copy_(out["error"])
+                inl[i].copy_(out["inliers"])
+            out_R[i].copy_(runner.b["R"])
+            out_t[i].copy_(runner.b["t"])
+    return Run(poses=Pose(out_R, out_t), store=None, added=None, state=runner.state(), error=err,
+               inliers=inl, stats=runner.close())

@@ -33,12 +33,10 @@ The plan is built on the host once a solve (`chordal.scatter_plan`, a
 read of the edge ends) and copied into the runner's table. Its width is
 the largest node degree rounded up to a power of two, so the graphs of a
 session whose loops raise the degree share a runner until the degree
-crosses a bucket. At most MAX_RUNNERS runners are kept, the least
-recently used dropped first.
+crosses a bucket. At most MAX_RUNNERS runners are kept
+(`frame_graph.RunnerCache`), the least recently used dropped first.
 """
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -51,7 +49,7 @@ from . import frame_graph
 
 MAX_RUNNERS = 4
 
-_runners: collections.OrderedDict = collections.OrderedDict()
+_runners = frame_graph.RunnerCache(MAX_RUNNERS)
 
 # the graph arrays a solve reads, by buffer name
 _ARRAYS = dict(R0=lambda g: g.poses.R, t0=lambda g: g.poses.t,
@@ -153,12 +151,7 @@ def solve(g: fg.FactorGraph, anchors: torch.Tensor,
     plan = chordal.scatter_plan(g)
     width = plan.slots.shape[1] if plan.padded else None
     key = (g.poses.R.device, g.node_capacity, g.edge_capacity, width, config, g.poses.R.dtype)
-    runner = _runners.pop(key, None)
-    if runner is None:
-        runner = Runner(g, anchors, plan, config)
-    _runners[key] = runner
-    while len(_runners) > MAX_RUNNERS:
-        _runners.popitem(last=False)[1].close()
+    runner = _runners.get(key, lambda: Runner(g, anchors, plan, config))
     return runner(g, anchors, plan)
 
 
@@ -167,12 +160,11 @@ def stats() -> list[dict]:
     graph-pool bytes, with its key's node and edge capacity, plan width
     (None: the CPU's index plan) and CG / GN / CG iterations, the least
     recently used first."""
-    return [dict(r.stats(), nodes=k[1], edges=k[2], width=k[3],
-                 iters=(k[4].rot_cg_iters, k[4].gn_iters, k[4].pose_cg_iters))
-            for k, r in _runners.items()]
+    return _runners.stats(lambda k: dict(nodes=k[1], edges=k[2], width=k[3],
+                                         iters=(k[4].rot_cg_iters, k[4].gn_iters,
+                                                k[4].pose_cg_iters)))
 
 
 def clear() -> None:
     """Drop every runner (their graphs and buffers)."""
-    while _runners:
-        _runners.popitem(last=False)[1].close()
+    _runners.clear()

@@ -30,12 +30,11 @@ eagerly, in the same order, on the same buffers.
 
 `verifier` copies a pair's stores into the runner of its key (`copy_`,
 once per `search_pair_loops` call) and keeps at most MAX_RUNNERS
-runners, dropping the least recently used: `OnlineSlam`'s stores grow by
-doubling, and each capacity is a key.
+runners (`frame_graph.RunnerCache`), dropping the least recently
+used: `OnlineSlam`'s stores grow by doubling, and each capacity is a
+key.
 """
 from __future__ import annotations
-
-import collections
 
 import torch
 
@@ -48,7 +47,7 @@ from .config import SlamConfig
 
 MAX_RUNNERS = 4
 
-_runners: collections.OrderedDict = collections.OrderedDict()
+_runners = frame_graph.RunnerCache(MAX_RUNNERS)
 
 
 def _store_bufs(store: kf.KeyframeStore, side: str) -> dict:
@@ -158,12 +157,7 @@ def verifier(store_a: kf.KeyframeStore, store_b: kf.KeyframeStore, cfg: SlamConf
            tuple(store_b.xyz.shape), store_a.count.dtype,
            None if sinos is None else (tuple(sinos[0].shape), tuple(sinos[1].shape),
                                        sinos[0].dtype))
-    runner = _runners.pop(key, None)
-    if runner is None:
-        runner = Runner(store_a, store_b, sinos, cfg, same_robot, batch)
-    _runners[key] = runner
-    while len(_runners) > MAX_RUNNERS:
-        _runners.popitem(last=False)[1].close()
+    runner = _runners.get(key, lambda: Runner(store_a, store_b, sinos, cfg, same_robot, batch))
     runner.load(store_a, store_b, sinos)
     return runner
 
@@ -172,11 +166,10 @@ def stats() -> list[dict]:
     """Each kept runner's chunks, captures, replays, capture seconds and
     graph-pool bytes, with its key's same_robot, seeds a candidate and
     store shapes."""
-    return [dict(r.stats(), same_robot=k[2], seeds=1 if k[7] is None else 2,
-                 store_a=k[4], store_b=k[5]) for k, r in _runners.items()]
+    return _runners.stats(lambda k: dict(same_robot=k[2], seeds=1 if k[7] is None else 2,
+                                         store_a=k[4], store_b=k[5]))
 
 
 def clear() -> None:
     """Drop every runner (their graphs and buffers)."""
-    while _runners:
-        _runners.popitem(last=False)[1].close()
+    _runners.clear()

@@ -312,8 +312,9 @@ def test_features_dispatch_launches_kernel_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_one_launch_per_call_and_graph_capture_on_card(cuda_device):
-    """One launch per call, and the call captured in a CUDA graph
-    replays to the eager result bit for bit."""
+    """One launch per call, none counted while a CUDA graph captures the
+    call (the capture records it and runs nothing), and the captured
+    call replays to the eager result bit for bit."""
     h, v = terrain(96, 160)
     ht, vt = torch.from_numpy(h).to(cuda_device), torch.from_numpy(v).to(cuda_device)
     res = torch.tensor(RES, device=cuda_device)
@@ -325,10 +326,41 @@ def test_one_launch_per_call_and_graph_capture_on_card(cuda_device):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     hopper_stencil.reset_launch_count()
+    recorded = hopper_stencil.recorded_count()
     with torch.cuda.graph(graph):
         captured = hopper_stencil.terrain_features(ht, vt, res)
-    assert hopper_stencil.launch_count() == 1
+    assert hopper_stencil.launch_count() == 0
+    assert hopper_stencil.recorded_count() == recorded + 1
     graph.replay()
     torch.cuda.synchronize()
     for a, b in zip(eager, captured):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_segment_replays_count_the_recorded_launch_on_card(cuda_device):
+    """A stencil call captured in a `frame_graph.Segments` graph and
+    replayed twice reads 2 launches: each replay adds the launch its
+    capture recorded."""
+    from mr_slam_torch.runtime import frame_graph
+
+    h, v = terrain(96, 160)
+    bufs = dict(height=torch.from_numpy(h).to(cuda_device), valid=torch.from_numpy(v).to(cuda_device),
+                res=torch.tensor(RES, device=cuda_device))
+
+    def fn(b):
+        return dict(zip(("slope", "roughness", "step", "travers"),
+                        hopper_stencil.terrain_features(b["height"], b["valid"], b["res"])))
+
+    segs = frame_graph.Segments(cuda_device)
+    with segs.on_stream():
+        eager = segs.eager("stencil", fn, bufs)  # makes the workspaces, as a runner's first call
+        hopper_stencil.reset_launch_count()
+        for _ in range(2):
+            out = segs.run("stencil", fn, bufs)  # the first captures, then replays
+    torch.cuda.synchronize()
+    assert segs.captures == 1 and segs.replays == 2
+    assert hopper_stencil.launch_count() == 2
+    for k in eager:
+        assert torch.equal(out[k], eager[k])
+    segs.close(2)
