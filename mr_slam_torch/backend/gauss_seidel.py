@@ -15,13 +15,26 @@ sweep), with over-relaxation `gamma`.
 
 Each robot's block solve is matrix-free CG over the SAME fixed-capacity
 arrays with only that robot's rows free; every other node's
-contribution is folded into the right-hand side. The sweeps are Python
-loops (the reference's `lax.scan`s) and the robot loop is unrolled. It
-runs in one process with no collectives: `distributed.py` is the
-multi-process optimizer, this module the algorithmic cross-check (with
-the same `robust_delta` both share a fixed point on consistent graphs).
-Every scatter goes through one `segment.ScatterPlan` (`chordal`), so a
-rerun on the card is bit-identical.
+contribution is folded into the right-hand side. It runs in one process
+with no collectives: `distributed.py` is the multi-process optimizer,
+this module the algorithmic cross-check (with the same `robust_delta`
+both share a fixed point on consistent graphs). Every scatter goes
+through one `segment.ScatterPlan` (`chordal`), so a rerun on the card is
+bit-identical.
+
+The reference compiles the whole solve (`@jax.jit optimize`, its sweeps
+two `lax.scan`s, the robot loop unrolled in each). Here the solve is cut
+into sweeps on the same operations in the same order: `rot_sweeps` x
+`rotation_sweep`, `so3.project`, `pose_sweeps` x `pose_sweep`,
+`so3.project`. `optimize` runs them through `runtime/solve_graph`'s
+Gauss-Seidel runner, which replays each sweep from a CUDA graph on the
+card (a default solve is ~90,000 small kernels: launch-bound when run op
+by op) and keeps the projections' SVDs eager between the stages. A
+sweep's index may be a Python int or a 0-d integer tensor on the device
+(the runner's counter, which its graphs advance): the flagged-init gate
+compares `robots <= sweep`, the same booleans either way.
+`_optimize_eager` is the solve op by op, the oracle the runner is held
+to bit for bit.
 """
 from __future__ import annotations
 
@@ -95,40 +108,39 @@ def _rotation_system(g: FactorGraph, gate: torch.Tensor, anchors: torch.Tensor, 
     return A, a[:, None, None] * g.poses.R
 
 
-def optimize(
-    g: FactorGraph,
-    anchors: torch.Tensor,
-    n_robots: int,
-    config: GSConfig = GSConfig(),
-) -> Pose:
-    """The two-stage decentralized scheme; returns optimized poses. The
-    sweep order is robot id. With flagged initialization robot 0 starts
-    initialized and robot r joins at sweep r."""
-    N = g.node_capacity
-    dev = g.poses.t.device
-    scatter = chordal.scatter_plan(g)
-    robots = torch.arange(n_robots, device=dev)
+def initialized_at(sweep, n_robots: int, config: GSConfig, device) -> torch.Tensor:
+    """(n_robots,) bool: the robots initialized at global sweep `sweep`
+    (an int or a 0-d integer tensor). With flagged initialization robot 0
+    starts initialized and robot r joins at sweep r."""
+    if not config.flagged_init:
+        return torch.ones((n_robots,), dtype=torch.bool, device=device)
+    return torch.arange(n_robots, device=device) <= sweep
 
-    def initialized_at(sweep: int) -> torch.Tensor:
-        if not config.flagged_init:
-            return torch.ones((n_robots,), dtype=torch.bool, device=dev)
-        return robots <= sweep
 
-    def sweep_blocks(x, ctx, block):
-        """One sweep over the robots' blocks: Gauss-Seidel applies each
-        block at once, Jacobi sums the blocks' moves from one state."""
-        if config.jacobi:
-            delta = torch.zeros_like(x)
-            for r in range(n_robots):
-                delta = delta + block(x, r, ctx) - x
-            return x + delta
+def _sweep_blocks(x: torch.Tensor, n_robots: int, config: GSConfig, block) -> torch.Tensor:
+    """One sweep over the robots' blocks in robot order: Gauss-Seidel
+    applies each block at once, Jacobi sums the blocks' moves from one
+    state."""
+    if config.jacobi:
+        delta = torch.zeros_like(x)
         for r in range(n_robots):
-            x = block(x, r, ctx)
-        return x
+            delta = delta + block(x, r) - x
+        return x + delta
+    for r in range(n_robots):
+        x = block(x, r)
+    return x
 
-    # ---- stage 1: rotation sweeps -------------------------------------
-    def rot_block(X, r, ctx):
-        init, A, b_anchor = ctx
+
+def rotation_sweep(X: torch.Tensor, sweep, g: FactorGraph, anchors: torch.Tensor,
+                   n_robots: int, config: GSConfig, scatter) -> torch.Tensor:
+    """One sweep of stage 1 (the reference's `rot_sweep`): every robot's
+    block of the linear chordal rotation system, its neighbours'
+    rotations held fixed. X (N, 3, 3); returns X after the sweep."""
+    init = initialized_at(sweep, n_robots, config, X.device)
+    A, b_anchor = _rotation_system(g, _robot_edge_gate(g, init), anchors,
+                                   config.anchor_weight, scatter)
+
+    def block(X, r):
         m = (g.node_robot == r) & g.node_valid
         mN = m[:, None, None].to(X.dtype)
         X_fixed = (1.0 - mN) * X
@@ -138,25 +150,36 @@ def optimize(
         upd = config.gamma * init[r].to(X.dtype)
         return X + upd * (X_new - X) * mN
 
-    X = g.poses.R
-    for sweep in range(config.rot_sweeps):
-        init = initialized_at(sweep)
-        A, b_anchor = _rotation_system(g, _robot_edge_gate(g, init), anchors,
-                                       config.anchor_weight, scatter)
-        X = sweep_blocks(X, (init, A, b_anchor), rot_block)
-    R = so3.project(X)
-    R = torch.where(g.node_valid[:, None, None], R, g.poses.R)
+    return _sweep_blocks(X, n_robots, config, block)
 
-    # ---- stage 2: chordal pose sweeps ---------------------------------
-    # one GN linearization a sweep; a robot's block solves the normal
-    # equations with its neighbours' (phi, dt) held at 0, i.e. their
-    # current poses as priors
-    aw = anchors.to(torch.float32) * config.anchor_weight
+
+def pose_sweep(R: torch.Tensor, t: torch.Tensor, sweep, g: FactorGraph, aw: torch.Tensor,
+               n_robots: int, config: GSConfig, scatter):
+    """One sweep of stage 2 (the reference's `pose_sweep`) from (R, t):
+    one GN linearization, then every robot's block of the normal
+    equations with its neighbours' (phi, dt) held at 0, i.e. their
+    current poses as priors. `sweep` counts the stage's sweeps; the gate
+    reads the global counter `sweep + rot_sweeps`. `aw` (N,): the
+    anchors' prior weights (`anchors * config.anchor_weight`) toward
+    `g.poses`. Returns (R, t) after the sweep."""
+    N = g.node_capacity
     anchor_R0, anchor_t0 = g.poses.R, g.poses.t
-    t = g.poses.t
+    # the global sweep counter: with rot_sweeps >= n_robots - 1 every robot has joined
+    init = initialized_at(sweep + config.rot_sweeps, n_robots, config, t.device)
+    gate = _robot_edge_gate(g, init)
+    r_res, J = chordal._residuals_and_jac(R, t, g)
+    # chordal.optimize's Cauchy IRLS loop weights: a shared fixed point
+    row_w = chordal._edge_block_weight(g, r_res, config.robust_delta)
+    row_w = row_w * gate.to(torch.float32)[:, None]
 
-    def pose_block(x, r, ctx):
-        init, Hx, b = ctx
+    def Hx(x):
+        return chordal._jtwj(J, row_w, x, g, scatter) + (aw[:, None] + config.damping) * x
+
+    b = -chordal._jtw(J, row_w * r_res, scatter)
+    phi_anchor = so3.log(R @ anchor_R0.transpose(-1, -2))
+    b = b - aw[:, None] * torch.cat([phi_anchor, t - anchor_t0], dim=1)
+
+    def block(x, r):
         m = (g.node_robot == r) & g.node_valid
         mN = m[:, None].to(x.dtype)
         x_fixed = (1.0 - mN) * x
@@ -165,24 +188,47 @@ def optimize(
         upd = config.gamma * init[r].to(x.dtype)
         return x + upd * (x_new - x) * mN
 
+    x = _sweep_blocks(torch.zeros((N, 6), dtype=t.dtype, device=t.device), n_robots, config,
+                      block)
+    R_new = so3.exp(x[:, 0:3]) @ R
+    t_new = t + x[:, 3:6]
+    R = torch.where(g.node_valid[:, None, None], R_new, R)
+    t = torch.where(g.node_valid[:, None], t_new, t)
+    return R, t
+
+
+def optimize(
+    g: FactorGraph,
+    anchors: torch.Tensor,
+    n_robots: int,
+    config: GSConfig = GSConfig(),
+) -> Pose:
+    """The two-stage decentralized scheme; returns optimized poses. The
+    sweep order is robot id. Runs through the runner of the solve's key
+    (`runtime/solve_graph`: CUDA-graph replays on the card), bit-equal to
+    `_optimize_eager`."""
+    from ..runtime import solve_graph
+
+    return solve_graph.solve_gauss_seidel(g, anchors, n_robots, config)
+
+
+def _optimize_eager(
+    g: FactorGraph,
+    anchors: torch.Tensor,
+    n_robots: int,
+    config: GSConfig = GSConfig(),
+) -> Pose:
+    """`optimize` op by op, its sweep indices Python ints: the oracle that
+    the runner's solve equals bit for bit (the tests and `chip_smoke.py`
+    call it)."""
+    scatter = chordal.scatter_plan(g)
+    X = g.poses.R
+    for sweep in range(config.rot_sweeps):
+        X = rotation_sweep(X, sweep, g, anchors, n_robots, config, scatter)
+    R = so3.project(X)
+    R = torch.where(g.node_valid[:, None, None], R, g.poses.R)
+    aw = anchors.to(torch.float32) * config.anchor_weight
+    t = g.poses.t
     for sweep in range(config.pose_sweeps):
-        # the global sweep counter: every robot joined during stage 1
-        init = initialized_at(sweep + config.rot_sweeps)
-        gate = _robot_edge_gate(g, init)
-        r_res, J = chordal._residuals_and_jac(R, t, g)
-        # chordal.optimize's Cauchy IRLS loop weights: a shared fixed point
-        row_w = chordal._edge_block_weight(g, r_res, config.robust_delta)
-        row_w = row_w * gate.to(torch.float32)[:, None]
-
-        def Hx(x, J=J, row_w=row_w):
-            return chordal._jtwj(J, row_w, x, g, scatter) + (aw[:, None] + config.damping) * x
-
-        b = -chordal._jtw(J, row_w * r_res, scatter)
-        phi_anchor = so3.log(R @ anchor_R0.transpose(-1, -2))
-        b = b - aw[:, None] * torch.cat([phi_anchor, t - anchor_t0], dim=1)
-        x = sweep_blocks(torch.zeros((N, 6), dtype=t.dtype, device=dev), (init, Hx, b), pose_block)
-        R_new = so3.exp(x[:, 0:3]) @ R
-        t_new = t + x[:, 3:6]
-        R = torch.where(g.node_valid[:, None, None], R_new, R)
-        t = torch.where(g.node_valid[:, None], t_new, t)
+        R, t = pose_sweep(R, t, sweep, g, aw, n_robots, config, scatter)
     return Pose(so3.project(R), t)

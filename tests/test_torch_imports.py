@@ -155,6 +155,18 @@ def test_s2m_chaos_imports_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_gs_rounding_imports_no_jax():
+    """The card-side diagnostic of Gauss-Seidel's rounding spread imports
+    neither JAX nor the reference."""
+    bad = [m for m in _imported_modules(ROOT / "gs_rounding.py")
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "mr_slam_tpu")]
+    assert not bad, bad
+    code = 'import sys; sys.modules["jax"] = None; import gs_rounding; print("ok")'
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_native_sources_are_the_ports_own():
     """The scan log is the port's copy: it names neither JAX nor the
     reference package, and `native.py` builds it from the port's tree."""

@@ -606,3 +606,41 @@ def longrun_reference(T: int = 120, rings: int = 64, azimuth: int = 1024, R: int
         for r, t in enumerate(trajs))
     kfs = tuple(int(rr.store.count) for rr in res.robots)
     return ates, kfs, sum(l["robot_a"] != l["robot_b"] for l in res.loops), len(res.loops)
+
+
+# --------------------------------------------------------------------------
+# the reference behind `chip_smoke.JAX_REF_GS_PGO`
+# --------------------------------------------------------------------------
+
+
+def gs_pgo_reference() -> dict:
+    """Gauss-Seidel at `GSConfig()` on phase 10's 510-node graph, the
+    port's `graphgen.multi_robot_graph(**chip_smoke.PGO_GRAPH)` drawn on
+    the CPU: the ATE (m) of the reference's `gauss_seidel.optimize` (JAX
+    on the CPU, the graph carried across through numpy), of the port's
+    eager solve, of the port's chordal solve at `chip_smoke.PGO_FULL`,
+    and of the odometry. Run from the repository root:
+
+        JAX_PLATFORMS=cpu python -c "from tests.torch_parity import gs_pgo_reference; \\
+            print(gs_pgo_reference())"
+    """
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from mr_slam_torch.backend import chordal, gauss_seidel
+    from mr_slam_torch.eval import graphgen
+    from mr_slam_tpu.backend import gauss_seidel as jgs
+
+    g, true, anchors, _ = graphgen.multi_robot_graph(**chip_smoke.PGO_GRAPH, device="cpu")
+    n = int(g.n_nodes)
+
+    def ate(t) -> float:
+        d = np.asarray(t)[:n] - true.t.numpy()
+        return float(np.sqrt(np.mean(np.sum(d * d, axis=-1))))
+
+    R = chip_smoke.PGO_GRAPH["n_robots"]
+    ref = jgs.optimize(graph_to_jax(g), jnp.asarray(anchors.numpy()), R, jgs.GSConfig())
+    port = gauss_seidel._optimize_eager(g, anchors, R, gauss_seidel.GSConfig())
+    cen = chordal._optimize_eager(g, anchors, chordal.PGOConfig(**chip_smoke.PGO_FULL))
+    return dict(reference=ate(ref.t), port=ate(port.t), chordal=ate(cen.t),
+                odometry=ate(g.poses.t))
