@@ -68,6 +68,12 @@ frames, `mr_slam_tpu/frontend/feature_odometry.py:28-95`):
 `scan2map` and `lio` run a stacked sequence through one runner (the
 batch path, `pipeline.run_frontend`); `OnlineSlam.add_frame` keeps one
 runner a robot and steps it a frame at a time.
+
+Every runner projects through `project`, which counts the SVD's host
+waits at `sync.<site>` and opens the span `online.frontend.project` in
+the front-ends (`online.solve.project` in the solves); `Segments`
+counts its kind's captures, their seconds and its eager first calls'
+seconds (`graph.<kind>.*`, `runtime/observability.py`).
 """
 from __future__ import annotations
 
@@ -88,6 +94,7 @@ from ..ops import hopper_stencil, hopper_vgicp
 from ..ops import pointcloud as pcl
 from ..ops import registration, voxel_grid
 from ..parallel import store as mstore_lib
+from . import observability as obs
 
 
 def _clone(x):
@@ -98,6 +105,22 @@ def _clone(x):
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_clone(v) for v in x))
     return x
+
+
+# host waits of one `so3.project` on the card: its batched
+# `torch.linalg.svd` syncs twice (PyTorch 2.11, cuSOLVER)
+SVD_SYNCS = 2
+
+
+def project(R: torch.Tensor, site: str, span: str | None = None) -> torch.Tensor:
+    """`so3.project(R)` between a runner's replays, counted as SVD_SYNCS
+    host waits at `sync.<site>`, inside the tracer span `span` when one
+    is named."""
+    obs.metrics.inc(f"sync.{site}", SVD_SYNCS)
+    if span is None:
+        return so3.project(R)
+    with obs.tracer.span(span):
+        return so3.project(R)
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,10 +137,13 @@ class Segments:
     """Named segments of a frame, each `fn(bufs) -> dict of outputs`:
     eager on the CPU; on a CUDA device captured at the first `run` and
     replayed from then on (the outputs are then the graph's own tensors,
-    rewritten by every replay)."""
+    rewritten by every replay). `kind` names the runners' family in the
+    counters `graph.<kind>.captures`, `.capture_s` and `.eager_s`
+    (`frontend`, `verify`, `solve`, `register`)."""
 
-    def __init__(self, device):
+    def __init__(self, device, kind: str):
         self.device = torch.device(device)
+        self.kind = kind
         self.capture = self.device.type == "cuda"
         self._graphs: dict = {}
         self._eager: set = set()
@@ -145,7 +171,10 @@ class Segments:
     def eager(self, name: str, fn: Callable, bufs: dict) -> dict:
         """Run the segment eagerly on every device (a runner's first step)."""
         self._eager.add(name)
-        return fn(bufs)
+        t = time.perf_counter()
+        out = fn(bufs)
+        obs.metrics.inc(f"graph.{self.kind}.eager_s", time.perf_counter() - t)
+        return out
 
     def run(self, name: str, fn: Callable, bufs: dict) -> dict:
         """Run the segment: a graph replay on a CUDA device (captured at
@@ -168,6 +197,7 @@ class Segments:
         `run` captures it anew. Returns whether there was one."""
         if name not in self._graphs:
             return False
+        obs.metrics.inc(f"sync.{self.kind}.drop")
         self.stream.synchronize()  # its last replay has run
         del self._graphs[name]
         return True
@@ -187,8 +217,11 @@ class Segments:
                 graph.capture_end()
             raise
         graph.capture_end()
+        dt = time.perf_counter() - t
         self.captures += 1
-        self.capture_s += time.perf_counter() - t
+        self.capture_s += dt
+        obs.metrics.inc(f"graph.{self.kind}.captures")
+        obs.metrics.inc(f"graph.{self.kind}.capture_s", dt)
         self.held_bytes = self.pool_bytes()  # replays allocate nothing more
         launches = (dict(collections.Counter(hopper_vgicp.recorded_by_batch()) - vgicp),
                     hopper_stencil.recorded_count() - stencil)
@@ -210,6 +243,7 @@ class Segments:
         stats = dict(frames=frames, captures=self.captures, replays=self.replays,
                      capture_s=self.capture_s, pool_bytes=self.pool_bytes())
         if self.capture:
+            obs.metrics.inc(f"sync.{self.kind}.close")
             self.stream.synchronize()
             self._graphs.clear()
         return stats
@@ -371,6 +405,9 @@ class RowGate:
 # runners
 # --------------------------------------------------------------------------
 
+# the front-end runners' projections between replays: their sync site and span
+PROJECT = ("frontend.project", "online.frontend.project")
+
 
 def _load_frame(b: dict, xyz: torch.Tensor, mask: torch.Tensor, times: torch.Tensor | None,
                 stamp: float) -> None:
@@ -390,7 +427,7 @@ class _Runner:
     GATED: tuple = ()
 
     def __init__(self, dev, n_points: int, with_times: bool, gate):
-        self.segs = Segments(dev)
+        self.segs = Segments(dev, "frontend")
         self.gate = gate
         self.steps = 0
         self.gate_recaptures = 0
@@ -508,9 +545,9 @@ class Scan2Map(_Runner):
                 b.update(run("first", self._first, b))
             else:
                 b.update(run("coarse", self._coarse, b))
-                b["coarse_R"].copy_(so3.project(b["coarse_raw"]))
+                b["coarse_R"].copy_(project(b["coarse_raw"], *PROJECT))
                 b.update(run("fine", self._fine, b))
-                b["new_R"].copy_(so3.project(b["fine_raw"]))
+                b["new_R"].copy_(project(b["fine_raw"], *PROJECT))
                 out.update(error=b["error"], inliers=b["inliers"])
             if not shed:
                 run("insert", self._insert, b)
@@ -687,7 +724,7 @@ class Loam:
     def __init__(self, state: odometry.OdometryState, config: odometry.OdometryConfig,
                  image_shape: tuple):
         dev = state.pose.t.device
-        self.segs = Segments(dev)
+        self.segs = Segments(dev, "frontend")
         self.config, self.frame, self.steps = config, state.frame, 0
         self.leaf, self.coarse_leaf = state.grid.leaf, state.coarse_grid.leaf
         R, t = state.pose
@@ -759,9 +796,9 @@ class Loam:
                 run("first", self._first, b)
             else:
                 b.update(run("coarse", self._coarse, b))
-                b["coarse_R"].copy_(so3.project(b["coarse_raw"]))
+                b["coarse_R"].copy_(project(b["coarse_raw"], *PROJECT))
                 b.update(run("loam", self._loam, b))
-                b["new_R"].copy_(so3.project(b["loam_raw"]))
+                b["new_R"].copy_(project(b["loam_raw"], *PROJECT))
                 out.update(error=b["error"], inliers=b["inliers"])
             run("maintain", self._maintain, b)
         self.frame += 1

@@ -242,13 +242,15 @@ def search_pair_loops(
     same_robot: bool,
     query_idx: np.ndarray | None = None,
     exclude: set | None = None,
-    counters=None,
 ) -> list[dict]:
     """All accepted loops between store a's queries and store b: one
     retrieval call, ceil(candidates / CHUNK) verify calls. Returns loop
     dicts {kf_a, kf_b, rel, fitness, desc_dist}. `exclude`: (kf_a, kf_b)
-    pairs to skip; `counters`: optional observability Metrics."""
+    pairs to skip. Each host wait on the card counts at its site
+    (`sync.loop.*`, `runtime/observability.py`)."""
     L = cfg.loops
+    metrics = obs.metrics
+    metrics.inc("sync.loop.count", 2)
     Ka = int(store_a.count)
     Kb = int(store_b.count)
     if Ka == 0 or Kb == 0:
@@ -256,6 +258,7 @@ def search_pair_loops(
     dev = store_a.xyz.device
     if query_idx is None:
         query_idx = np.arange(store_a.capacity)
+    metrics.inc("sync.loop.query")
     qi = torch.as_tensor(np.asarray(query_idx, np.int64), device=dev)
 
     with obs.tracer.span("loop.retrieve"):
@@ -263,6 +266,7 @@ def search_pair_loops(
             descs_a, qi, store_a.poses.t, descs_b, store_b.poses.t,
             store_b.count, cfg, same_robot,
         )
+        metrics.inc("sync.loop.retrieve", len(out))
         d_top, i_top, yaw_top, od_top, oi_top, oyaw_top = (x.cpu().numpy() for x in out)
 
     cand: list[tuple[int, int, float, float]] = []  # (ia, ib, yaw, desc_d)
@@ -284,7 +288,6 @@ def search_pair_loops(
                 if key not in seen:
                     seen.add(key)
                     cand.append((ia, int(oi_top[q, c]), float(oyaw_top[q, c]), np.inf))
-    metrics = counters if counters is not None else obs.metrics
     metrics.inc("loops.candidates", len(cand))
     if not cand:
         return []
@@ -297,6 +300,7 @@ def search_pair_loops(
         chunk = cand[s : s + CHUNK]
         B = len(chunk)
         pad = CHUNK - B
+        metrics.inc("sync.loop.chunk", 3)
         ia_arr = torch.as_tensor([c[0] for c in chunk] + [0] * pad, device=dev)
         ib_arr = torch.as_tensor([c[1] for c in chunk] + [0] * pad, device=dev)
         yw_arr = torch.as_tensor([c[2] for c in chunk] + [0.0] * pad,
@@ -306,10 +310,10 @@ def search_pair_loops(
                 verify = verify_graph.verifier(store_a, store_b, cfg, same_robot, descs_a,
                                                descs_b, batch=CHUNK)
             rel, fit = verify(ia_arr, ib_arr, yw_arr)
+            metrics.inc("sync.loop.fitness")
             fit = fit.cpu().numpy()
         for k in range(B):
             metrics.inc("loops.verified")
-            metrics.observe("loops.fitness", float(fit[k]))
             if float(fit[k]) < L.fitness_thresh:
                 loops.append(dict(
                     kf_a=chunk[k][0], kf_b=chunk[k][1], rel=se3.index(rel, k),

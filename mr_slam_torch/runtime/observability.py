@@ -1,107 +1,104 @@
-"""Structured tracing and metrics.
+"""Named spans and counters of the port's host-side work.
 
 The reference scatters `TicToc` stopwatches and ROS_DEBUG prints across
-stages (SURVEY.md §5.1: `tic_toc.h`, per-stage chrono spans, FAST-LIO's
-matlab log dumps) with no registry. Here one `Tracer` keeps the
-reference's stage taxonomy (prepare / associate / solve / update /
-compose) as named spans with wall-clock stats, and a `Metrics` registry
-holds counters/gauges the pipeline publishes (loops found, PCM
-rejections, optimizer cost, fitness values) — queryable and dumpable as
-JSON. `torch.profiler` traces can be layered on for device-level detail.
-Spans read the host clock: callers that time device work synchronize
-(`torch.cuda.synchronize()`) before a span closes.
+stages (SURVEY.md §5.1: `tic_toc.h`, per-stage chrono spans) with no
+registry. Here one `Tracer` times named spans on the host clock and one
+`Metrics` holds named counters; both are process-wide (`tracer`,
+`metrics`).
+
+A span's key is its name when the name holds a `.`
+(`online.frontend.project`), else the name under the key of the span
+it opens in (`robot0`, then `frontend` inside it: `robot0.frontend`).
+Each span adds its time to its parent's `child_s`, so `SpanStats.self_s`
+is the time a span spent outside its children: a layer's own time.
+
+Spans read the host clock: a span that times device work ends in a host
+wait. The benchmark's traced run also makes each span a `torch.profiler`
+range of the same name (`slambench/trace.py`), so the card's idle gaps
+fall to the innermost span the host was in, on the profiler's clock;
+that is why a sub-span takes a dotted name, which is then both its key
+and its range's name.
+
+Counters the online session keeps (`runtime/online.py` and its runners):
+
+  sync.<site>            host waits on the card at each site (a `.item()`,
+                         `.cpu()`, a pageable host-to-device copy, an SVD,
+                         `torch.cuda.synchronize`), counted on every device
+  graph.<kind>.captures  CUDA graphs captured by the runners of a kind
+                         (`frontend`, `verify`, `solve`, `register`)
+  graph.<kind>.capture_s host seconds of those captures
+  graph.<kind>.eager_s   host seconds of the kind's eager first calls
+  loops.corrected        loops kept by a solve, each counted once
+  loops.correction_s     their seconds from the later of their two
+                         keyframes to the end of the solve that kept them
 """
 from __future__ import annotations
 
 import contextlib
-import json
 import time
 from collections import defaultdict
-from dataclasses import dataclass, field
-from typing import Any
+from dataclasses import dataclass
 
 
 @dataclass
 class SpanStats:
     count: int = 0
     total_s: float = 0.0
-    max_s: float = 0.0
-    last_s: float = 0.0
+    child_s: float = 0.0  # time of the spans opened inside this one
 
     @property
     def mean_s(self) -> float:
         return self.total_s / max(self.count, 1)
 
+    @property
+    def self_s(self) -> float:
+        return self.total_s - self.child_s
+
 
 class Tracer:
-    """Named wall-clock spans. Use `with tracer.span("associate"):` —
-    nesting builds dotted paths (solve.rotation, solve.pose)."""
+    """Named wall-clock spans: `with tracer.span("online.solve"):`. A
+    dotted name is its own key; a bare name nests under the open span's
+    key (module docstring)."""
 
     def __init__(self) -> None:
         self.stats: dict[str, SpanStats] = defaultdict(SpanStats)
-        self._stack: list[str] = []
+        self._stack: list[str] = []  # keys of the open spans
 
     @contextlib.contextmanager
     def span(self, name: str):
-        path = ".".join(self._stack + [name])
-        self._stack.append(name)
+        parent = self._stack[-1] if self._stack else None
+        key = name if parent is None or "." in name else f"{parent}.{name}"
+        self._stack.append(key)
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
             self._stack.pop()
-            s = self.stats[path]
+            s = self.stats[key]
             s.count += 1
             s.total_s += dt
-            s.max_s = max(s.max_s, dt)
-            s.last_s = dt
+            if parent is not None:
+                self.stats[parent].child_s += dt
 
     def report(self) -> dict[str, dict[str, float]]:
+        """Each key's count, mean and mean self milliseconds a span, and
+        total seconds."""
         return {
-            k: dict(count=v.count, mean_ms=v.mean_s * 1e3, max_ms=v.max_s * 1e3,
-                    total_s=v.total_s)
+            k: dict(count=v.count, mean_ms=v.mean_s * 1e3,
+                    self_ms=v.self_s * 1e3 / max(v.count, 1), total_s=v.total_s)
             for k, v in sorted(self.stats.items())
         }
 
-    def dump(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.report(), f, indent=2)
-
 
 class Metrics:
-    """Counters, gauges and histograms-lite (running min/max/mean)."""
+    """Named counters."""
 
     def __init__(self) -> None:
         self.counters: dict[str, float] = defaultdict(float)
-        self.gauges: dict[str, float] = {}
-        self._agg: dict[str, list[float]] = defaultdict(list)
 
     def inc(self, name: str, value: float = 1.0) -> None:
         self.counters[name] += value
-
-    def set(self, name: str, value: float) -> None:
-        self.gauges[name] = float(value)
-
-    def observe(self, name: str, value: float) -> None:
-        self._agg[name].append(float(value))
-
-    def report(self) -> dict[str, Any]:
-        out: dict[str, Any] = {
-            "counters": dict(self.counters),
-            "gauges": dict(self.gauges),
-        }
-        out["observations"] = {
-            k: dict(
-                n=len(v), mean=sum(v) / len(v), min=min(v), max=max(v)
-            )
-            for k, v in self._agg.items() if v
-        }
-        return out
-
-    def dump(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.report(), f, indent=2)
 
 
 # module-level defaults, importable anywhere

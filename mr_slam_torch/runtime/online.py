@@ -29,13 +29,25 @@ notices a reallocated store (a robot joining past the allocated rows)
 and captures its gate anew. The eager tick is kept as
 `_add_frame_eager`, the oracle that the runner is held to bit for bit.
 
-Host syncs per frame: one scalar, the keyframe gate (needed to schedule
-the descriptor write and the loop stage), plus one transfer of the two
-GEM motion scalars when GEM is on. Keyframe counts are kept on the host
-as well as on the device, so the capacity check costs none. The
-cadence products (TF, merged map) and the loop stage sync when they
-fire. (The odometry step's own syncs, inside `so3.project`'s SVD, are
-the batch front-end's as well.)
+Host syncs: each point where the host waits on the card counts at its
+site in `observability.metrics` (`sync.<site>`). A frame waits at the
+keyframe gate's bit (`sync.frontend.gate`, needed to schedule the
+descriptor write and the loop stage) and, on scan2map, at the two SO(3)
+projections between the runner's replays (`sync.frontend.project`);
+with GEM on, at the motion scalars (`sync.gem.motion`). Keyframe counts
+are kept on the host as well as on the device, so the capacity check
+costs none. The cadence products (`sync.tf`, `sync.compose.*`), the
+loop stage (`sync.loop.*`, `sync.verify.*`, `sync.pcm`) and the solve
+(`sync.solve.*`) wait when they fire.
+
+Spans (`observability.tracer`): `online.frontend` (with
+`online.frontend.project` and `online.frontend.gate_read` inside),
+`online.keyframe` (with `online.describe`), `online.tf`,
+`online.compose`, `online.gem`, and `online.loop_stage` around
+`loop.retrieve`, `loop.verify`, `online.pcm` and `online.solve` (with
+`online.solve.prepare` and `online.solve.project`). Each loop a solve
+keeps counts once in `loops.corrected`, and its seconds from the later
+of its keyframes to the end of that solve in `loops.correction_s`.
 
 A robot runs the front-end its resolved config selects: scan2map, or
 the FAST-LIO-style IEKF (`OdometryCfg.frontend == "lio"`), whose frames
@@ -65,6 +77,7 @@ from ..parallel import store as mstore_lib
 from . import frame_graph
 from . import observability as obs
 from . import pipeline as pl
+from . import solve_graph
 from .config import SlamConfig
 
 
@@ -125,6 +138,7 @@ class _RobotGraphs:
         run = segs.eager if first else segs.run
         with segs.on_stream():
             if rs.get("gem_last_pose") is not None and (e.drift_z > 0.0 or e.drift_tilt > 0.0):
+                obs.metrics.inc("sync.gem.motion")
                 dt, drot = run("gem_motion", _gem_motion, b)["motion"].tolist()
                 b["sigma_z"].fill_(e.drift_z * dt)
                 b["sigma_tilt"].fill_(e.drift_tilt * drot)
@@ -204,6 +218,10 @@ class OnlineSlam:
         self._last_tf_stamp: Optional[float] = None
         self._over_budget_prev = False  # last frame blew the deadline
         self._runners: dict[int, _RobotGraphs] = {}  # robot id -> its runner
+        # host time of each keyframe (bounded by the keyframe capacity) and
+        # the loops counted in `loops.corrected` (bounded by the loops)
+        self._kf_time: dict[tuple[int, int], float] = {}
+        self._corrected: set[tuple[int, int, int, int]] = set()
 
     # -- batched-store plumbing ----------------------------------------
     def _kf_capacity(self) -> int:
@@ -326,9 +344,10 @@ class OnlineSlam:
         second frame on. `robots[robot]["odo"]` and `["gem_local"]` are
         then views of its buffers, which the next frame rewrites.
 
-        Sync budget: one scalar device-to-host transfer per frame (the
-        keyframe-gate bit), plus the GEM tick's motion scalars when GEM
-        is on."""
+        Host waits (`sync.<site>` counters): the keyframe-gate bit, on
+        scan2map the two SO(3) projections between the replays, the GEM
+        tick's motion scalars when GEM is on, and those of the keyframe,
+        loop stage, TF and compose work that the frame sets off."""
         return self._tick(robot, scan, stamp, times, imu, self._frontend_graphs)
 
     def _add_frame_eager(self, robot: int, scan: pcl.PointCloud, stamp: float = 0.0, times=None,
@@ -397,6 +416,7 @@ class OnlineSlam:
                 self._last_compose_stamp = stamp
                 with obs.tracer.span("online.compose"):
                     self.merged_map = self.compose_map()
+                    obs.metrics.inc("sync.compose.end")
                     pl._sync(self.device)
                 obs.metrics.inc("compose.runs")
         return pose
@@ -423,7 +443,7 @@ class OnlineSlam:
             torch.full((), float(stamp), dtype=torch.float32, device=self.device),
             dist_thresh=rs["kf_cfg"].dist_thresh, leaf=rs["kf_cfg"].leaf,
         )
-        added = bool(added.item())  # the one per-frame sync
+        added = self._gate_read(added)
         return pose, added, lambda: self._gem_tick(rs, scan, pose)
 
     def _frontend_graphs(self, robot, rs, scan, stamp, times, imu, shed):
@@ -442,9 +462,16 @@ class OnlineSlam:
         else:
             out = front.step(*args, shed=shed)
         rs["odo"] = runner.odo = front.state()
-        added = bool(out["added"].item())  # the one per-frame sync
+        added = self._gate_read(out["added"])
         R, t = front.pose()
         return Pose(R.clone(), t.clone()), added, lambda: runner.gem_tick(rs, first)
+
+    @staticmethod
+    def _gate_read(added: torch.Tensor) -> bool:
+        """The keyframe gate's bit on the host: the frame's own sync."""
+        with obs.tracer.span("online.frontend.gate_read"):
+            obs.metrics.inc("sync.frontend.gate")
+            return bool(added.item())
 
     def _host(self, x: torch.Tensor) -> torch.Tensor:
         """A frame input ready for a `copy_` into the runner's buffers
@@ -492,8 +519,13 @@ class OnlineSlam:
         """Write the current map->odom correction per robot into the
         session's tf2-analogue buffer (`publishTF`: /map -> robot_N/odom).
         Correction = optimized(latest solved kf) o odom(that kf)^-1;
-        identity until the first optimization. One host transfer for all
-        robots."""
+        identity until the first optimization. Two host transfers for all
+        robots (`sync.tf`)."""
+        with obs.tracer.span("online.tf"):
+            self._publish_tf(stamp)
+        obs.metrics.inc("tf.publishes")
+
+    def _publish_tf(self, stamp: float) -> None:
         names, Rs, ts = [], [], []
         for r in self.robots:
             K = self.kf_counts[r]
@@ -510,11 +542,11 @@ class OnlineSlam:
             Rs.append(corr.R)
             ts.append(corr.t)
         if names:
+            obs.metrics.inc("sync.tf", 2)
             R = torch.stack(Rs).cpu().numpy()
             t = torch.stack(ts).cpu().numpy()
             for i, child in enumerate(names):
                 self.tf.set_transform("map", child, stamp, R[i], t[i])
-        obs.metrics.inc("tf.publishes")
 
     def compose_map(self, leaf: float = 0.5, capacity: int = 1 << 17) -> pcl.PointCloud:
         """Merged global cloud from the CURRENT session state (keyframes
@@ -530,6 +562,7 @@ class OnlineSlam:
             # only read nodes covered by the LAST solve
             if (self.opt_poses is not None and (ids >= 0).all()
                     and (ids < self._opt_n_nodes).all()):
+                obs.metrics.inc("sync.compose.ids")
                 idx = torch.as_tensor(ids, device=self.device)
                 poses = Pose(self.opt_poses.R[idx], self.opt_poses.t[idx])
             else:
@@ -557,6 +590,7 @@ class OnlineSlam:
         e = rs.get("gem_cfg", self.cfg.elevation)
         if last is not None and (e.drift_z > 0.0 or e.drift_tilt > 0.0):
             c = torch.clamp((torch.trace(last.R.T @ pose.R) - 1.0) / 2.0, -1.0, 1.0)
+            obs.metrics.inc("sync.gem.motion")
             dt, drot = torch.stack([torch.linalg.norm(pose.t - last.t), torch.arccos(c)]).tolist()
             m = elevation.motion_update(m, pose.t[:2], sigma_z=e.drift_z * dt,
                                         sigma_tilt=e.drift_tilt * drot)
@@ -596,6 +630,13 @@ class OnlineSlam:
         return emap
 
     def _on_keyframe(self, robot: int, k: int, stamp: float = 0.0) -> None:
+        """A new keyframe: its graph node and odometry edge, its
+        descriptor, and the loop stage when enough keyframes wait."""
+        self._kf_time[(robot, k)] = time.perf_counter()
+        with obs.tracer.span("online.keyframe"):
+            self._add_keyframe(robot, k, stamp)
+
+    def _add_keyframe(self, robot: int, k: int, stamp: float) -> None:
         rs = self.robots[robot]
         row = self.rows[robot]
         store, _ = self.store_view(robot)
@@ -615,7 +656,9 @@ class OnlineSlam:
             self.graph, _ = fg.add_edge(self.graph, self.node_of[(robot, k - 1)], idx, meas,
                                         fg.ODOM, 1.0, 1.0)
         # incremental descriptor append — O(1) new work per keyframe
-        one = pl.describe_one(store.cloud(k), self.cfg)
+        with obs.tracer.span("online.describe"):
+            one = pl.describe_one(store.cloud(k), self.cfg)
+        obs.metrics.inc("sync.keyframe.valid")  # the slot's valid flag set from the host
         self.mstore = mstore_lib.write_descriptor(self.mstore, row, k, one)
         self._pending_kf.append((robot, k))
         if self.loop_every > 0 and len(self._pending_kf) >= self.loop_every:
@@ -630,6 +673,10 @@ class OnlineSlam:
         Per (pending-robot, database-robot) pair: one retrieval call and
         one verification call per chunk of candidates
         (`runtime/loopstage.py`)."""
+        with obs.tracer.span("online.loop_stage"):
+            return self._loop_stage()
+
+    def _loop_stage(self) -> int:
         from . import loopstage
 
         cfg = self.cfg
@@ -684,8 +731,25 @@ class OnlineSlam:
         self.loops = intra + kept
         with obs.tracer.span("online.solve"):
             self.optimize()
+            obs.metrics.inc("sync.solve.end")
             pl._sync(self.device)
+        self._count_corrected(time.perf_counter())
         return len(new_loops)
+
+    def _count_corrected(self, now: float) -> None:
+        """Count each loop of the last solve not counted before, with its
+        seconds from the later of its two keyframes to `now`. Keyframes
+        restored from a checkpoint have no time and predate the others;
+        a loop between two of them is not counted."""
+        for l in self.loops:
+            key = (l["robot_a"], l["kf_a"], l["robot_b"], l["kf_b"])
+            if key in self._corrected:
+                continue
+            self._corrected.add(key)
+            seen = [self._kf_time[k] for k in (key[:2], key[2:]) if k in self._kf_time]
+            if seen:
+                obs.metrics.inc("loops.corrected")
+                obs.metrics.inc("loops.correction_s", now - max(seen))
 
     def _graph_with_loops(self) -> fg.FactorGraph:
         """The persistent odometry graph with the currently accepted loop
@@ -694,6 +758,7 @@ class OnlineSlam:
         if not self.loops:
             return self.graph
         dev = self.device
+        obs.metrics.inc("sync.solve.loops", 3)
         ei = torch.as_tensor([self.node_of[(l["robot_a"], l["kf_a"])] for l in self.loops],
                              device=dev)
         ej = torch.as_tensor([self.node_of[(l["robot_b"], l["kf_b"])] for l in self.loops],
@@ -708,18 +773,24 @@ class OnlineSlam:
         return g
 
     def optimize(self) -> None:
-        self._opt_n_nodes = self.graph.n_nodes
-        g = self._graph_with_loops()
-        anchors = np.zeros(g.node_capacity, bool)
-        for r in self.robots:
-            if (r, 0) in self.node_of:
-                anchors[self.node_of[(r, 0)]] = True
-        p = self.cfg.pgo
-        self.opt_poses = chordal.optimize(
-            g, torch.as_tensor(anchors, device=self.device),
-            chordal.PGOConfig(rot_cg_iters=p.rot_cg_iters, gn_iters=p.gn_iters,
-                              pose_cg_iters=p.pose_cg_iters, robust_delta=p.robust_delta),
-        )
+        """`chordal.optimize` of the graph with the accepted loops, through
+        its runner (`runtime/solve_graph`); what comes before the first
+        replay is the span `online.solve.prepare`."""
+        with obs.tracer.span("online.solve.prepare"):
+            self._opt_n_nodes = self.graph.n_nodes
+            g = self._graph_with_loops()
+            anchors = np.zeros(g.node_capacity, bool)
+            for r in self.robots:
+                if (r, 0) in self.node_of:
+                    anchors[self.node_of[(r, 0)]] = True
+            p = self.cfg.pgo
+            obs.metrics.inc("sync.solve.anchors")
+            solve = solve_graph.prepare(
+                g, torch.as_tensor(anchors, device=self.device),
+                chordal.PGOConfig(rot_cg_iters=p.rot_cg_iters, gn_iters=p.gn_iters,
+                                  pose_cg_iters=p.pose_cg_iters, robust_delta=p.robust_delta),
+            )
+        self.opt_poses = solve()
 
     # -- results --------------------------------------------------------
     def result(self) -> pl.SlamResult:

@@ -368,6 +368,9 @@ def pcm_gate_inter_loops(inter: list[dict], pose_of, cfg: SlamConfig) -> list[di
                 return (l["robot_a"], l["kf_a"]), (l["robot_b"], l["kf_b"]), l["rel"]
             return (l["robot_b"], l["kf_b"]), (l["robot_a"], l["kf_a"]), se3.inverse(l["rel"])
 
+        # `pcm.filter_loops` waits on the card 4 times: the mask and both
+        # index arrays copied in, the consistency matrix read back
+        obs.metrics.inc("sync.pcm", 4)
         oriented = [ends(l) for l in ls]
         pa = se3.stack([pose_of(*ea) for ea, _, _ in oriented])
         pb = se3.stack([pose_of(*eb) for _, eb, _ in oriented])

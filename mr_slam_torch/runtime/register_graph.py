@@ -101,7 +101,7 @@ class Runner:
     def __init__(self, inputs: dict, gn: Callable, score: Callable | None = None,
                  unbatch: bool = False):
         dev = self.device = inputs["R0"].device
-        self.segs = frame_graph.Segments(dev)
+        self.segs = frame_graph.Segments(dev, "register")
         self.gn, self.score, self.unbatch = gn, score, unbatch
         self.first = "gn" if score is None else "reg"
         self.calls = 0

@@ -56,22 +56,33 @@ the largest node degree rounded up to a power of two, so the graphs of a
 session whose loops raise the degree share a runner until the degree
 crosses a bucket. At most MAX_RUNNERS runners of each solve are kept
 (`frame_graph.RunnerCache`), the least recently used dropped first.
+`prepare` builds the plan and finds the runner, and returns the solve
+to run: `OnlineSlam.optimize` times that part as `online.solve.prepare`.
 """
 from __future__ import annotations
+
+import functools
+from typing import Callable
 
 import torch
 
 from ..backend import chordal, gauss_seidel
 from ..backend import factor_graph as fg
-from ..geometry import so3
 from ..geometry.se3 import Pose
 from ..ops import segment
 from . import frame_graph
+from . import observability as obs
 
 MAX_RUNNERS = 4
 
 _runners = frame_graph.RunnerCache(MAX_RUNNERS)
 _gs_runners = frame_graph.RunnerCache(MAX_RUNNERS)
+
+# the solves' projections between replays: their sync site and span
+PROJECT = ("solve.project", "online.solve.project")
+# host waits of building a padded plan: the reads of its index and mask and
+# its table's copy back to the card (`segment.ScatterPlan`)
+PLAN_SYNCS = 3
 
 # the graph arrays a solve reads, by buffer name
 _ARRAYS = dict(R0=lambda g: g.poses.R, t0=lambda g: g.poses.t,
@@ -91,7 +102,7 @@ class _Solver:
     the anchors, the plan's table and the state (R, t)."""
 
     def __init__(self, g: fg.FactorGraph, anchors: torch.Tensor, plan: segment.ScatterPlan):
-        self.segs = frame_graph.Segments(g.poses.R.device)
+        self.segs = frame_graph.Segments(g.poses.R.device, "solve")
         self.solves = 0
         b = {name: _empty(get(g)) for name, get in _ARRAYS.items()}
         b.update(anchors=_empty(anchors), R=_empty(g.poses.R), t=_empty(g.poses.t),
@@ -130,7 +141,7 @@ class _Solver:
     def _result(self) -> Pose:
         self.solves += 1
         # the graphs rewrite the state at the next solve
-        return Pose(so3.project(self.b["R"]), self.b["t"].clone())
+        return Pose(frame_graph.project(self.b["R"], *PROJECT), self.b["t"].clone())
 
     def stats(self) -> dict:
         s = self.segs
@@ -170,7 +181,7 @@ class Runner(_Solver):
         with self.segs.on_stream():
             self.load(g, anchors, plan)
             b.update(run("rot", self._rot, b))
-            R = so3.project(b["X"])
+            R = frame_graph.project(b["X"], *PROJECT)
             b["R"].copy_(torch.where(b["node_valid"][:, None, None], R, b["R0"]))
             b["t"].copy_(b["t0"])
             for _ in range(self.config.gn_iters):
@@ -218,7 +229,7 @@ class GSRunner(_Solver):
             b["sweep"].zero_()
             for _ in range(cfg.rot_sweeps):
                 run("rot", self._rot, b)
-            R = so3.project(b["X"])
+            R = frame_graph.project(b["X"], *PROJECT)
             b["R"].copy_(torch.where(b["node_valid"][:, None, None], R, b["R0"]))
             b["t"].copy_(b["t0"])
             b["aw"].copy_(b["anchors"].to(torch.float32) * cfg.anchor_weight)
@@ -232,17 +243,26 @@ def _plan_key(g: fg.FactorGraph):
     """(plan, the key's device, capacities, plan width (None: the CPU's
     index plan) and dtype)."""
     plan = chordal.scatter_plan(g)
+    if plan.padded:
+        obs.metrics.inc("sync.solve.plan", PLAN_SYNCS)
     width = plan.slots.shape[1] if plan.padded else None
     return plan, (g.poses.R.device, g.node_capacity, g.edge_capacity, width, g.poses.R.dtype)
+
+
+def prepare(g: fg.FactorGraph, anchors: torch.Tensor,
+            config: chordal.PGOConfig = chordal.PGOConfig()) -> Callable[[], Pose]:
+    """The solve of `g` ready to run: its plan built and the runner of its
+    key found (or made). Calling the result solves."""
+    plan, key = _plan_key(g)
+    runner = _runners.get((*key, config), lambda: Runner(g, anchors, plan, config))
+    return functools.partial(runner, g, anchors, plan)
 
 
 def solve(g: fg.FactorGraph, anchors: torch.Tensor,
           config: chordal.PGOConfig = chordal.PGOConfig()) -> Pose:
     """`chordal.optimize(g, anchors, config)` without a process group,
     through the runner of the solve's key."""
-    plan, key = _plan_key(g)
-    runner = _runners.get((*key, config), lambda: Runner(g, anchors, plan, config))
-    return runner(g, anchors, plan)
+    return prepare(g, anchors, config)()
 
 
 def solve_gauss_seidel(g: fg.FactorGraph, anchors: torch.Tensor, n_robots: int,

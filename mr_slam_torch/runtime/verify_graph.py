@@ -12,9 +12,9 @@ indices and yaw guesses. A chunk is three segments of
 
   coarse   both sides' `_prep_side`, the three grid builds, the seeds
            and the S-fold, the coarse GN rounds (`_vgicp_direct1_raw`)
-           [se3.normalize, eager: so3.project's SVD syncs the host]
+           [frame_graph.project, eager: so3.project's SVD syncs the host]
   fine     the fine GN rounds
-           [se3.normalize, eager]
+           [frame_graph.project, eager]
   score    the subsampled fitness, the best seed, se3.inverse
 
 A runner's first chunk runs the segments eagerly on its buffers: that
@@ -39,7 +39,6 @@ from __future__ import annotations
 import torch
 
 from ..frontend import keyframes as kf
-from ..geometry import se3
 from ..geometry.se3 import Pose
 from ..ops import registration
 from . import frame_graph, loopstage
@@ -72,7 +71,7 @@ class Runner:
     def __init__(self, store_a, store_b, sinos, cfg: SlamConfig, same_robot: bool, batch: int):
         dev = store_a.xyz.device
         self.cfg, self.same_robot, self.batch = cfg, same_robot, batch
-        self.segs = frame_graph.Segments(dev)
+        self.segs = frame_graph.Segments(dev, "verify")
         self.chunks = 0
         self.b = dict(ia=torch.zeros((batch,), dtype=torch.int64, device=dev),
                       ib=torch.zeros((batch,), dtype=torch.int64, device=dev),
@@ -128,9 +127,9 @@ class Runner:
             b["ib"].copy_(ib)
             b["yaw"].copy_(yaw)
             b.update(run("coarse", self._coarse, b))
-            b["coarse_R"].copy_(se3.normalize(b["coarse"]).R)
+            b["coarse_R"].copy_(frame_graph.project(b["coarse"].R, "verify.project"))
             b.update(run("fine", self._fine, b))
-            b["fine_R"].copy_(se3.normalize(b["fine"]).R)
+            b["fine_R"].copy_(frame_graph.project(b["fine"].R, "verify.project"))
             b.update(run("score", self._score, b))
         self.chunks += 1
         # the graphs rewrite their outputs at the next replay

@@ -291,7 +291,7 @@ def test_lio_graphs_equal_eager_on_card(lio_sequence, card, with_times):
 def test_failed_capture_raises_on_card(card):
     """A segment that syncs the host cannot be captured: the runner
     raises instead of running it eagerly."""
-    segs = frame_graph.Segments(card)
+    segs = frame_graph.Segments(card, "frontend")
     bufs = dict(x=torch.ones(4, device=card))
     with segs.on_stream(), pytest.raises(RuntimeError):
         segs.run("sync", lambda b: dict(n=int(b["x"].sum().item())), bufs)

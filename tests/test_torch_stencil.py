@@ -352,7 +352,7 @@ def test_segment_replays_count_the_recorded_launch_on_card(cuda_device):
         return dict(zip(("slope", "roughness", "step", "travers"),
                         hopper_stencil.terrain_features(b["height"], b["valid"], b["res"])))
 
-    segs = frame_graph.Segments(cuda_device)
+    segs = frame_graph.Segments(cuda_device, "frontend")
     with segs.on_stream():
         eager = segs.eager("stencil", fn, bufs)  # makes the workspaces, as a runner's first call
         hopper_stencil.reset_launch_count()
