@@ -8,8 +8,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   1. card    — requires a CUDA device; prints `nvidia-smi`'s name and
                power limit.
   2. build   — compiles the hand-written kernels (`csrc/vgicp_accum.cu`,
-               `csrc/terrain_stencil.cu`) with nvcc from this checkout,
-               both at once, and prints ptxas' register / shared-memory /
+               `csrc/terrain_stencil.cu`, `csrc/segment_sum.cu`) with nvcc
+               from this checkout, all at once, and prints ptxas' register / shared-memory /
                spill report of each; builds the native max-clique solver.
   3. kernel  — the VGICP accumulation kernel against its plain PyTorch
                version on the card at the loop-verify shapes (B = 8
@@ -291,12 +291,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                past the first LONGRUN_PROFILE_FRAMES (the difference of
                the two graph regions); the front-end's frames/s through
                the graphs and the eager loop.
+ 13. segment — the segment-sum kernel (`csrc/segment_sum.cu`, every
+               scatter-add of the port on the card) at the main path's
+               shapes (`segment_inputs`: a scan's 65,536 points x 4
+               columns in key order with a 16,162-point run, and 16,384
+               points x 13 columns by hash with a 7,033-point run): bit-
+               equal to its plain version (CPU `index_add_`) and to
+               PyTorch's sorted `index_put_`, a bit-identical rerun, one
+               launch a call; its times beside `index_put_`'s, and its
+               launches on the main paths of phases 5, 7, 9 and 12.
 
-Every kernel check of phases 3, 4, 6, 8, 11 and 12 prints, for its shape, the
+Every kernel check of phases 3, 4, 6, 8, 11, 12 and 13 prints, for its shape, the
 device time (`graph_ms`: calls captured in a CUDA graph, replays timed
 with CUDA events), the eager call time (`_cuda_ms`), the plain
 version's time, and the bound (`bound`: bytes over the HBM rate or f32
-operations over the f32 peak, whichever is larger) with the device
+operations over the f32 peak, whichever is larger; for the segment sum
+the bytes or the longest run's chain of float adds) with the device
 time's share of it.
 
 Each phase prints its seconds (`[time]`). The last three lines are the
@@ -484,7 +494,7 @@ def phase_card():
     return smi
 
 
-KERNELS = ("vgicp_accum", "terrain_stencil")
+KERNELS = ("vgicp_accum", "terrain_stencil", "segment_sum")
 
 
 def phase_build():
@@ -908,6 +918,102 @@ def phase_stencil(dev):
     return worst
 
 
+# segment_sum launches on the main paths, by phase (filled as they run)
+SEGMENT_LAUNCHES: dict = {}
+# the card's add latency, for the segment sum's chain bound: 4 cycles at
+# the H100 SXM's 1980 MHz boost clock
+FADD_S = 4 / 1.98e9
+
+
+def segment_inputs(dev, seed=0):
+    """The main path's two shapes. `downsample`: a 64x1024 scan's 65,536
+    points onto 8,193 slots in nondecreasing order, runs of 1-15 and the
+    16,162 parked and over-capacity points in the last slot, 4 columns
+    (`pointcloud.voxel_downsample`: sums and count). `insert`: 16,384
+    points hashed onto a 2^18-row map in no order, 7,033 parked points in
+    one slot, 13 columns onto the map's moments (`voxel_grid.insert`).
+    Values spread over six decades, so that the order of the sums shows."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 16, 8000)
+    flat = np.repeat(np.arange(len(lens)), lens)[: 65536 - 16162]
+    down = np.concatenate([flat, np.full(16162, 8192)])
+    ins = rng.integers(0, 1 << 18, 16384)
+    ins[:7033] = 77
+    ins = ins[rng.permutation(16384)]
+
+    def vals(m, cols):
+        v = rng.normal(size=(m, cols)) * 10.0 ** rng.integers(-3, 3, (m, cols))
+        return torch.from_numpy(v.astype(np.float32)).to(dev)
+
+    base = torch.from_numpy(rng.normal(size=(1 << 18, 13)).astype(np.float32)).to(dev)
+    return dict(
+        downsample=(8193, torch.from_numpy(down).to(dev), vals(65536, 4), None, True, 16162),
+        insert=(1 << 18, torch.from_numpy(ins).to(dev), vals(16384, 13), base, False, 7033))
+
+
+def phase_segment(dev):
+    """The segment-sum kernel at the main path's shapes: bit-equal to its
+    plain version (CPU `index_add_`, onto zeros; onto a base, base + the
+    sum from zero) and to PyTorch's sorted `index_put_(...,
+    accumulate=True)`, a bit-identical rerun, then device ms (100 calls
+    replayed from a CUDA graph), call ms (eager), plain ms (CPU) and
+    `index_put_`'s device ms, the library yardstick. Bound: the larger of
+    the bytes at the HBM rate and the longest run's add chain."""
+    import torch
+
+    from mr_slam_torch.ops import segment
+
+    out = {}
+    for name, (n, idx, vals, base, is_sorted, longest) in segment_inputs(dev).items():
+        m, cols = vals.shape
+
+        def call():
+            if base is None:
+                return segment.scatter_sum(n, idx, vals, sorted_index=is_sorted)
+            return segment.index_add(base, idx, vals)
+
+        def library():
+            start = vals.new_zeros((n, cols)) if base is None else base.clone()
+            return start.index_put_((idx,), vals, accumulate=True)
+
+        idx_h, vals_h = idx.cpu(), vals.cpu()
+
+        def plain():
+            return torch.zeros((n, cols)).index_add_(0, idx_h, vals_h)
+
+        segment.reset_launch_count()
+        got, again, lib = call(), call(), library()
+        torch.cuda.synchronize()
+        if segment.launch_count() != 2:
+            raise AssertionError(f"segment {name}: {segment.launch_count()} launches for 2 calls")
+        want = plain() if base is None else base.cpu() + plain()
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"segment {name}: differs from its plain version")
+        if not torch.equal(got, lib):
+            raise AssertionError(f"segment {name}: differs from index_put_")
+        if not torch.equal(got, again):
+            raise AssertionError(f"segment {name}: two calls are not bit-identical")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            plain()
+        plain_ms = 1e3 * (time.perf_counter() - t0) / 3
+        slots = int(torch.unique(idx).numel())
+        n_bytes = m * 4 + m * cols * 4 + slots * cols * 8
+        t_bytes, t_chain = n_bytes / HBM_BYTES_PER_S, longest * FADD_S
+        t = dict(ms=_cuda_ms(call, 50), device_ms=graph_ms(call), plain_ms=plain_ms,
+                 library_ms=graph_ms(library, calls=10, replays=2),
+                 bound_ms=1e3 * max(t_bytes, t_chain),
+                 bound_by="bytes" if t_bytes >= t_chain else "add chain", max_abs_err=0.0)
+        log(f"[segment] {name} {m} x {cols} ({'sorted' if is_sorted else 'sorted in the call'}, "
+            f"longest run {longest}): ok, bit-equal to the plain version and to index_put_, "
+            f"bit-identical rerun")
+        log(_times_line(f"[segment] {name}", t) + f"; index_put_ {t['library_ms']:.5f} ms")
+        out[name] = t
+    return out
+
+
 def _ate(res, trajs, r):
     import torch
 
@@ -924,7 +1030,7 @@ def phase_main(dev):
     import torch
 
     from mr_slam_torch.geometry import se3
-    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
+    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp, segment
     from mr_slam_torch.ops import pointcloud as pcl
     from mr_slam_torch.runtime import observability as obs
     from mr_slam_torch.runtime import pipeline
@@ -950,14 +1056,16 @@ def phase_main(dev):
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
+    segment.reset_launch_count()
     with VerifyRecord() as verified, SolveRecord() as solved:
         res, wall = run()
     launches = hopper_vgicp.launch_count()
+    SEGMENT_LAUNCHES["phase 5"] = segment.launch_count()
     peak = torch.cuda.max_memory_allocated()
     spans = obs.tracer.report()
     counters = dict(obs.metrics.counters)
     log(f"[main] pipeline.run wall {wall:.3f} s; peak device memory {peak / 2**20:.1f} MiB; "
-        f"vgicp_accum launches {launches}")
+        f"vgicp_accum launches {launches}, segment_sum {SEGMENT_LAUNCHES['phase 5']}")
     for r in range(N_ROBOTS):
         s = spans[f"robot{r}.frontend"]
         log(f"[main] robot {r} front-end {s['total_s']:.3f} s = {N_FRAMES / s['total_s']:.1f} frames/s, "
@@ -1566,8 +1674,9 @@ class SolveRecord:
     """Every chordal solve of a main-path run, held to the eager solve;
     with `gauss_seidel=True` every Gauss-Seidel solve.
 
-    Inside `with SolveRecord() as rec:` each `solve_graph.solve` (what
-    `chordal.optimize` runs without a process group; `solve_graph.
+    Inside `with SolveRecord() as rec:` each solve that `solve_graph.
+    prepare` readies (what `solve_graph.solve`, and so `chordal.optimize`
+    without a process group, and `OnlineSlam.optimize` run; `solve_graph.
     solve_gauss_seidel`, what `gauss_seidel.optimize` runs) keeps a copy
     of its graph and anchors, its static arguments and its result
     (`rec.records`). `rec.check(tag)` then runs `chordal._optimize_eager`
@@ -1579,7 +1688,7 @@ class SolveRecord:
 
     def __init__(self, gauss_seidel: bool = False):
         self.gauss_seidel = gauss_seidel
-        self.entry = "solve_gauss_seidel" if gauss_seidel else "solve"
+        self.entry = "solve_gauss_seidel" if gauss_seidel else "prepare"
         self.prefix = "[gs]" if gauss_seidel else "[solve]"
 
     def __enter__(self):
@@ -1587,7 +1696,7 @@ class SolveRecord:
 
         self.records = []
         self._solve = getattr(solve_graph, self.entry)
-        setattr(solve_graph, self.entry, self._recorded)
+        setattr(solve_graph, self.entry, self._recorded if self.gauss_seidel else self._prepared)
         return self
 
     def __exit__(self, *exc):
@@ -1596,7 +1705,13 @@ class SolveRecord:
         setattr(solve_graph, self.entry, self._solve)
 
     def _recorded(self, g, anchors, *args):
-        out = self._solve(g, anchors, *args)
+        return self._keep(g, anchors, args, self._solve(g, anchors, *args))
+
+    def _prepared(self, g, anchors, *args):
+        run = self._solve(g, anchors, *args)
+        return lambda: self._keep(g, anchors, args, run())
+
+    def _keep(self, g, anchors, args, out):
         self.records.append(((_clone(g), anchors.clone(), *args), out))
         return out
 
@@ -1748,7 +1863,7 @@ def phase_online(dev, trajs, host_scans, cfg):
 
     from mr_slam_torch.datasets import replay, sequence_artifact
     from mr_slam_torch.mapping import costmap, elevation
-    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
+    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp, segment
     from mr_slam_torch.runtime import checkpoint, online, solve_graph
     from mr_slam_torch.runtime import observability as obs
 
@@ -1786,6 +1901,7 @@ def phase_online(dev, trajs, host_scans, cfg):
     obs.metrics.counters.clear()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
+    segment.reset_launch_count()
     solve_graph.clear()  # the session's first solve of each key is then an eager one
     t = time.perf_counter()
     with VerifyRecord() as verified, SolveRecord() as solved:
@@ -1796,6 +1912,7 @@ def phase_online(dev, trajs, host_scans, cfg):
     solvers = solve_graph.stats()
     vgicp_launches = hopper_vgicp.launch_count()
     stream_stencil = hopper_stencil.launch_count()
+    SEGMENT_LAUNCHES["phase 7"] = segment.launch_count()
     peak = torch.cuda.max_memory_allocated()
     spans = obs.tracer.report()
     counters = dict(obs.metrics.counters)
@@ -2723,7 +2840,7 @@ def lio_batch(dev, sc, cfg):
     import torch
 
     from mr_slam_torch.geometry import se3
-    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.ops import hopper_vgicp, segment
     from mr_slam_torch.ops import pointcloud as pcl
     from mr_slam_torch.runtime import observability as obs
     from mr_slam_torch.runtime import pipeline
@@ -2750,8 +2867,10 @@ def lio_batch(dev, sc, cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
+    segment.reset_launch_count()
     res, wall = run()
     launches = hopper_vgicp.launch_count()
+    SEGMENT_LAUNCHES["phase 9 LIO run"] = segment.launch_count()
     peak = torch.cuda.max_memory_allocated()
     spans = obs.tracer.report()
     counters = dict(obs.metrics.counters)
@@ -2920,7 +3039,7 @@ def lio_session(dev, sc, cfg):
     import torch
 
     from mr_slam_torch.datasets import replay, synthetic
-    from mr_slam_torch.ops import hopper_vgicp
+    from mr_slam_torch.ops import hopper_vgicp, segment
     from mr_slam_torch.runtime import checkpoint, online
     from mr_slam_torch.runtime import observability as obs
 
@@ -2931,6 +3050,7 @@ def lio_session(dev, sc, cfg):
                                   imu_sub=LIO_IMU_SUB)
     t_bag = time.perf_counter() - t
     hopper_vgicp.reset_launch_count()
+    segment.reset_launch_count()
     obs.tracer.stats.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2941,6 +3061,7 @@ def lio_session(dev, sc, cfg):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = hopper_vgicp.launch_count()
+    SEGMENT_LAUNCHES["phase 9 LIO session"] = segment.launch_count()
     log(f"[lio-online] spans (total s / count): {session_spans()}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     graph_fps = fps_by_robot(recs, N_ROBOTS)
@@ -4020,7 +4141,7 @@ def phase_longrun(dev):
 
     from mr_slam_torch.examples import bench_longrun
     from mr_slam_torch.geometry import se3
-    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp
+    from mr_slam_torch.ops import hopper_stencil, hopper_vgicp, segment
     from mr_slam_torch.ops import pointcloud as pcl
     from mr_slam_torch.runtime import pipeline, verify_graph
 
@@ -4049,6 +4170,7 @@ def phase_longrun(dev):
     torch.cuda.reset_peak_memory_stats()
     hopper_vgicp.reset_launch_count()
     hopper_stencil.reset_launch_count()
+    segment.reset_launch_count()
     hopper_vgicp.gn_accumulate = spy
     try:
         with VerifyRecord() as verified, SolveRecord() as solved:
@@ -4058,6 +4180,7 @@ def phase_longrun(dev):
     launches = hopper_vgicp.launch_count()
     by_batch = hopper_vgicp.launches_by_batch()
     stencil = hopper_stencil.launch_count()
+    SEGMENT_LAUNCHES["phase 12"] = segment.launch_count()
     peak = torch.cuda.max_memory_allocated()
     out = bench_longrun.summary(res, trajs, wall, LONGRUN_RINGS, LONGRUN_AZIMUTH, dev)
     log(f"[longrun] bench_longrun record: {json.dumps(out)}")
@@ -4211,11 +4334,13 @@ def main() -> int:
                                      vgicp_launches, frontend_s, smi)
     del res, emap, host_scans
     longrun_vgicp, longrun_record = timed("longrun", phase_longrun, dev)
+    sums = timed("segment", phase_segment, dev)
     log(f"[longrun] launches on the main paths: vgicp_accum {vgicp_launches} (phase 5) + "
         f"{online_vgicp} (phase 7) + {desc_vgicp} (phase 8) + {lio_vgicp} (phase 9) + "
         f"{closure_vgicp} (phase 10) + {dist_vgicp} (phase 11) + {longrun_vgicp} (phase 12), "
         f"terrain_stencil {stencil_launches} (phase 6) + {online_stencil} (phase 7) + "
-        f"{dist_stencil} (phase 11)")
+        f"{dist_stencil} (phase 11), segment_sum "
+        + " + ".join(f"{n} ({k})" for k, n in SEGMENT_LAUNCHES.items()))
     log(f"[time] all phases: {sum(seconds.values()):.1f} s")
     vgicp_launches += (online_vgicp + desc_vgicp + lio_vgicp + closure_vgicp + dist_vgicp
                        + longrun_vgicp)
@@ -4229,6 +4354,9 @@ def main() -> int:
         dict(name="terrain_stencil", route="cuda", source="mr_slam_torch/csrc/terrain_stencil.cu",
              replaces="mr_slam_tpu/ops/pallas_stencil.py:71", launches=stencil_launches,
              **stencil),
+        dict(name="segment_sum", route="cuda", source="mr_slam_torch/csrc/segment_sum.cu",
+             replaces=None, launches=sum(SEGMENT_LAUNCHES.values()), **sums["downsample"],
+             insert=sums["insert"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

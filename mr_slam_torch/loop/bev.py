@@ -151,7 +151,7 @@ def eigen_feature_bev(pc: PointCloud, h: int = 120, w: int = 120, k: int = 16,
     inb = (torch.abs(xyz[..., 0]) < xy_max) & (torch.abs(xyz[..., 1]) < xy_max)
     flat = (i * w + j + _cell_offset(B, h * w, xyz.device)).reshape(-1)
     wm = (mask & valid & inb).to(torch.float32)
-    num = segment.scatter_sum(B * h * w, flat, (feats * wm[..., None]).reshape(-1, 6))
-    den = segment.scatter_sum(B * h * w, flat, wm.reshape(-1))
-    bev = num / torch.clamp(den[:, None], min=1.0)
+    acc = segment.scatter_sum(B * h * w, flat, (feats * wm[..., None]).reshape(-1, 6),
+                              wm.reshape(-1))
+    bev = acc[:, :6] / torch.clamp(acc[:, 6:], min=1.0)
     return bev.reshape(*batch, h, w, 6).movedim(-1, -3)

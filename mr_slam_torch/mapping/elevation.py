@@ -447,8 +447,8 @@ def fuse_color(m: ElevationMap, cg: ColorGrid, pc: PointCloud, colors: torch.Ten
     H, W = m.shape
     flat, ok = _cell_index(m, pc.xyz[:, :2], pc.mask & visible)
     w = ok.to(_F32)
-    sum_rgb = segment.scatter_sum(H * W + 1, flat, colors * w[:, None])
-    sum_w = segment.scatter_sum(H * W + 1, flat, w)
+    acc = segment.scatter_sum(H * W + 1, flat, colors * w[:, None], w)
+    sum_rgb, sum_w = acc[:, :3], acc[:, 3]
     new_w = cg.weight + sum_w[: H * W].reshape(H, W)
     num = cg.rgb * cg.weight[..., None] + sum_rgb[: H * W].reshape(H, W, 3)
     rgb = num / torch.clamp(new_w[..., None], min=1e-9)

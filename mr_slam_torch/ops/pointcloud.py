@@ -104,7 +104,8 @@ def voxel_downsample(
     fits in 36 bits). A stable sort, run starts, and segment sums give
     one centroid per occupied voxel, in ascending (i, j, k) order — the
     order matters downstream, where points are picked by position. The
-    segment sums add in point order on every device (`segment`).
+    segment sums (sums and counts, one call) add in point order on every
+    device (`segment`).
     Points outside `bounds` are dropped. Leading batch dims are
     independent clouds.
 
@@ -142,10 +143,11 @@ def voxel_downsample(
     seg = torch.where(svalid & (seg < capacity), seg, torch.full_like(seg, capacity))
     flat = (seg + torch.arange(B, device=dev)[:, None] * (capacity + 1)).reshape(-1)
     w = svalid.to(torch.float32).reshape(-1)
-    sums = segment.scatter_sum(B * (capacity + 1), flat, sxyz.reshape(-1, 3) * w[:, None])
-    cnts = segment.scatter_sum(B * (capacity + 1), flat, w)
-    sums = sums.reshape(B, capacity + 1, 3)[:, :capacity]
-    cnts = cnts.reshape(B, capacity + 1)[:, :capacity]
+    # flat is nondecreasing (seg a cumsum, the rest at capacity, batch
+    # offsets ascending): no sort on the card
+    acc = segment.scatter_sum(B * (capacity + 1), flat, sxyz.reshape(-1, 3) * w[:, None], w,
+                              sorted_index=True).reshape(B, capacity + 1, 4)[:, :capacity]
+    sums, cnts = acc[..., :3], acc[..., 3]
     out_mask = cnts > 0
     centroids = sums / torch.clamp(cnts[..., None], min=1.0)
     out = park(PointCloud(centroids, out_mask))

@@ -20,8 +20,9 @@ Port notes:
     — an IEEE division (dividing a CUDA tensor by a Python float would
     multiply by the reciprocal and move points on voxel faces);
   * scatter-min is `scatter_reduce_(..., "amin")`; scatter-add is
-    `segment.scatter_sum`, which adds each cell's points in index order
-    on every device (no float atomics), so builds are bit-stable;
+    `segment`'s, which adds each cell's points in index order on every
+    device (no float atomics), so builds are bit-stable; count, sums and
+    second moments (13 columns) go through one call, one sort;
   * `build`, `lookup*` take any leading batch shape (the reference
     vmaps them over verify candidates): batch item b uses table rows
     b*H .. b*H + H - 1 of the flattened table.
@@ -178,11 +179,10 @@ def build(
     contrib = mask.reshape(-1) & torch.all(ijk == cell_coord[gslot], dim=-1)
     w = contrib.to(torch.float32)
     pts = xyz.reshape(-1, 3)
-    count = segment.scatter_sum(B * H, gslot, w)
-    xsum = segment.scatter_sum(B * H, gslot, pts * w[:, None])
-    mean = xsum / torch.clamp(count[:, None], min=1.0)
     xx = (pts[:, :, None] * pts[:, None, :]).reshape(-1, 9)
-    xxsum = segment.scatter_sum(B * H, gslot, xx * w[:, None])
+    sums = segment.scatter_sum(B * H, gslot, w, pts * w[:, None], xx * w[:, None])
+    count, xsum, xxsum = sums[:, 0], sums[:, 1:4], sums[:, 4:]
+    mean = xsum / torch.clamp(count[:, None], min=1.0)
     cov = xxsum.reshape(-1, 3, 3) / torch.clamp(count[:, None, None], min=1.0) - (
         mean[:, :, None] * mean[:, None, :]
     )
@@ -301,10 +301,10 @@ def insert(grid: VoxelGrid, pc: PointCloud, min_points: int = 1) -> VoxelGrid:
     mean0 = grid.mean
     xsum = mean0 * count0[:, None]
     xxsum = (grid.cov + mean0[:, :, None] * mean0[:, None, :]) * count0[:, None, None]
-    count = segment.index_add(count0, slot, w)
-    xsum = segment.index_add(xsum, slot, pc.xyz * w[:, None])
     xx = pc.xyz[:, :, None] * pc.xyz[:, None, :]
-    xxsum = segment.index_add(xxsum.reshape(H, 9), slot, (xx * w[:, None, None]).reshape(n, 9))
+    sums = segment.index_add(torch.cat([count0[:, None], xsum, xxsum.reshape(H, 9)], dim=1), slot,
+                             w, pc.xyz * w[:, None], (xx * w[:, None, None]).reshape(n, 9))
+    count, xsum, xxsum = sums[:, 0], sums[:, 1:4], sums[:, 4:]
     mean = xsum / torch.clamp(count[:, None], min=1.0)
     cov = xxsum.reshape(H, 3, 3) / torch.clamp(count[:, None, None], min=1.0) - (
         mean[:, :, None] * mean[:, None, :]

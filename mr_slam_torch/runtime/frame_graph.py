@@ -43,14 +43,15 @@ memory pool and one stream. A replay launches the same kernels on the
 same inputs as the eager step, so the results are the eager card path's
 bit for bit. A failed capture raises: there is no eager fallback on the
 card. On the CPU the same segments run eagerly, in the same order, on
-the same buffers. A capture launches nothing, so neither kernel's
-wrapper (VGICP, the terrain stencil) counts the launches it records;
-each replay adds them (`hopper_vgicp.add_launches`,
-`hopper_stencil.add_launches`), and the counts stay the launches the
-card ran. Loop verification's chunks (`runtime/verify_graph.py`), the
-chordal solve's stages (`runtime/solve_graph.py`) and the registration
-entry points (`runtime/register_graph.py`) run on the same `Segments`,
-and keep their runners in a `RunnerCache`.
+the same buffers. A capture launches nothing, so no kernel's wrapper
+(VGICP, the terrain stencil, the segment sum) counts the launches it
+records; each replay adds them (`hopper_vgicp.add_launches`,
+`hopper_stencil.add_launches`, `segment.add_launches`), and the counts
+stay the launches the card ran. Loop verification's chunks
+(`runtime/verify_graph.py`), the chordal solve's stages
+(`runtime/solve_graph.py`) and the registration entry points
+(`runtime/register_graph.py`) run on the same `Segments`, and keep
+their runners in a `RunnerCache`.
 
 `Loam` is the A-LOAM feature front-end's runner
 (`feature_odometry.run`, the reference's jitted `step` scanned over the
@@ -90,7 +91,7 @@ from ..frontend import keyframes as kf
 from ..geometry import so3
 from ..geometry.se3 import Pose
 from ..ops import features as feat
-from ..ops import hopper_stencil, hopper_vgicp
+from ..ops import hopper_stencil, hopper_vgicp, segment
 from ..ops import pointcloud as pcl
 from ..ops import registration, voxel_grid
 from ..parallel import store as mstore_lib
@@ -183,13 +184,15 @@ class Segments:
             return fn(bufs)
         if name not in self._graphs:
             self._graphs[name] = self._capture(name, fn, bufs)
-        graph, out, (vgicp, stencil) = self._graphs[name]
+        graph, out, (vgicp, stencil, sums) = self._graphs[name]
         graph.replay()
         self.replays += 1
         if vgicp:
             hopper_vgicp.add_launches(vgicp)
         if stencil:
             hopper_stencil.add_launches(stencil)
+        if sums:
+            segment.add_launches(sums)
         return out
 
     def drop(self, name: str) -> bool:
@@ -208,6 +211,7 @@ class Segments:
             fn(_clone(bufs))
         vgicp = collections.Counter(hopper_vgicp.recorded_by_batch())
         stencil = hopper_stencil.recorded_count()
+        sums = segment.recorded_count()
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
@@ -224,7 +228,7 @@ class Segments:
         obs.metrics.inc(f"graph.{self.kind}.capture_s", dt)
         self.held_bytes = self.pool_bytes()  # replays allocate nothing more
         launches = (dict(collections.Counter(hopper_vgicp.recorded_by_batch()) - vgicp),
-                    hopper_stencil.recorded_count() - stencil)
+                    hopper_stencil.recorded_count() - stencil, segment.recorded_count() - sums)
         return graph, out, launches
 
     def pool_bytes(self) -> int:
